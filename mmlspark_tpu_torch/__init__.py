@@ -1,0 +1,21 @@
+"""mmlspark_tpu_torch — the PyTorch/CUDA port of mmlspark_tpu.
+
+A package of its own beside the JAX package, which stays the reference
+the port is held against. It imports torch, numpy and the standard
+library, never jax, flax or any module of ``mmlspark_tpu``: where it needs
+such code it keeps its own copy. Module names follow the JAX package's,
+so a module's counterpart is easy to find.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(:mod:`mmlspark_tpu_torch.device`). Every Pallas kernel on a ported path
+is a CUDA C++ kernel written for Hopper (``ops/csrc``), with its plain
+PyTorch version beside it; a CPU tensor takes the plain version, a CUDA
+tensor the kernel.
+
+The slice ported so far serves ViT-B/16 through :class:`ModelServer`:
+``ModelServer.add_model`` → ``DynamicBatcher`` → ``core.plan`` →
+``TorchModel`` forward, with ``ops.attention.flash_attention`` as the
+hand-written CUDA kernel. ROADMAP.md lists the slices still to come.
+"""
+
+__version__ = "0.1.0"

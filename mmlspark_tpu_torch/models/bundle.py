@@ -1,0 +1,62 @@
+"""ModelBundle — a runnable model: an ``nn.Module`` plus its IO contract.
+
+The port of ``mmlspark_tpu/models/bundle.py``. The JAX bundle pairs a
+stateless flax module with a separate param tree; a torch module holds
+its own parameters, so the bundle here carries the module, the
+per-example input shape, the selectable output nodes, the named
+preprocessing and a name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """A runnable model: ``nn.Module`` (parameters included) + IO contract.
+
+    ``output_names`` enumerates the selectable output nodes in graph
+    order; modules accept ``output=<name>`` in ``forward``."""
+
+    module: torch.nn.Module
+    input_spec: tuple                # per-example input shape, e.g. (224, 224, 3)
+    output_names: tuple = ("logits",)
+    preprocess: str | None = None    # a key of PREPROCESSORS
+    name: str = "model"
+
+    def resolve_output(self, node: str | int | None) -> str:
+        """Resolve an output-node selector (name, index, or None=last)."""
+        if node is None:
+            return self.output_names[-1]
+        if isinstance(node, int):
+            if not 0 <= node < len(self.output_names):
+                raise ValueError(
+                    f"output node index {node} out of range; model has "
+                    f"{len(self.output_names)} outputs: {self.output_names}")
+            return self.output_names[node]
+        if node not in self.output_names:
+            raise ValueError(
+                f"unknown output node {node!r}; available: {self.output_names}")
+        return node
+
+
+# named preprocessing on float tensors, applied on the device before the
+# module's forward
+PREPROCESSORS: dict[str, Callable[[Any], Any]] = {}
+
+
+def register_preprocess(name: str):
+    def deco(fn):
+        PREPROCESSORS[name] = fn
+        return fn
+    return deco
+
+
+@register_preprocess("scale_pm1")
+def _scale_pm1(x):
+    # 0-255 -> [-1, 1] (the ViT checkpoint-family convention)
+    return x / 127.5 - 1.0

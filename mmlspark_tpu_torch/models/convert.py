@@ -1,0 +1,64 @@
+"""Weight conversion from the JAX package's ViT param tree.
+
+``vit_state_dict_from_flax(params)`` takes the flax ``ViT`` params (the
+``ModelBundle.params`` of ``mmlspark_tpu.models.zoo.ViT_B16``/``ViT_Tiny``)
+as nested dicts of numpy arrays and returns the ``state_dict`` of
+:class:`mmlspark_tpu_torch.models.vit.ViT`:
+
+* ``Dense`` kernels ``[in, out]`` become ``Linear`` weights ``[out, in]``;
+* ``DenseGeneral`` ``query``/``key``/``value`` kernels ``[D, H, dh]`` are
+  reshaped to ``[D, H·dh]`` (head-major, as ``view(B, T, H, dh)``
+  unflattens it) before the transpose, their biases ``[H, dh]`` to
+  ``[H·dh]``; the ``out`` kernel ``[H, dh, D]`` is reshaped to
+  ``[H·dh, D]`` before the transpose;
+* the patch conv kernel HWIO becomes OIHW;
+* LayerNorm ``scale``/``bias`` become ``weight``/``bias``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(p: Mapping, prefix: str, out: dict) -> None:
+    kernel = np.asarray(p["kernel"], np.float32)
+    out[f"{prefix}.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
+    out[f"{prefix}.bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+
+
+def _layer_norm(p: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def vit_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ViT ``state_dict`` (float32 CPU tensors) from flax params."""
+    out: dict[str, torch.Tensor] = {}
+    conv = np.asarray(params["patch_embed"]["kernel"], np.float32)
+    out["patch_embed.weight"] = _t(conv.transpose(3, 2, 0, 1))
+    out["patch_embed.bias"] = _t(params["patch_embed"]["bias"])
+    out["pos_embed"] = _t(params["pos_embed"])
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        p = params[f"block{i}"]
+        pre = f"blocks.{i}"
+        _layer_norm(p["ln1"], f"{pre}.ln1", out)
+        for name in ("query", "key", "value"):
+            _dense(p["attn"][name], f"{pre}.attn.{name}", out)
+        o_kernel = np.asarray(p["attn"]["out"]["kernel"], np.float32)
+        out[f"{pre}.attn.out.weight"] = _t(
+            o_kernel.reshape(-1, o_kernel.shape[-1]).T)
+        out[f"{pre}.attn.out.bias"] = _t(p["attn"]["out"]["bias"])
+        _layer_norm(p["ln2"], f"{pre}.ln2", out)
+        _dense(p["mlp_in"], f"{pre}.mlp_in", out)
+        _dense(p["mlp_out"], f"{pre}.mlp_out", out)
+    _layer_norm(params["ln_f"], "ln_f", out)
+    _dense(params["head"], "head", out)
+    return out

@@ -1,0 +1,61 @@
+"""Built-in model architectures (the port of ``mmlspark_tpu.models.zoo``).
+
+Entries build the module directly on the target device and fill its
+weights from a seed through a ``torch.Generator`` on that device. The
+same seed gives other numbers than the JAX zoo's (another generator):
+parity with the JAX package goes through ``models/convert.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from mmlspark_tpu_torch.device import resolve_device
+from mmlspark_tpu_torch.models.bundle import ModelBundle
+from mmlspark_tpu_torch.models.vit import ViT, init_vit_, vit_b16, vit_tiny
+
+ZOO: dict[str, Callable[..., ModelBundle]] = {}
+
+
+def register_model(name: str):
+    def deco(fn):
+        ZOO[name] = fn
+        return fn
+    return deco
+
+
+def _seeded(module: ViT, seed: int, device: torch.device) -> ViT:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return init_vit_(module, gen).eval()
+
+
+@register_model("ViT_B16")
+def vit_b16_bundle(num_classes: int = 1000, input_size: int = 224,
+                   seed: int = 0, device: Any = None, **kw) -> ModelBundle:
+    """ViT-B/16 at full width (BASELINE config 5), bf16 compute."""
+    dev = resolve_device(device)
+    module = vit_b16(num_classes=num_classes, image_size=input_size,
+                     device=dev, **kw)
+    return ModelBundle(_seeded(module, seed, dev),
+                       (input_size, input_size, 3), ViT.OUTPUT_NAMES,
+                       preprocess="scale_pm1", name="ViT_B16")
+
+
+@register_model("ViT_Tiny")
+def vit_tiny_bundle(num_classes: int = 10, input_size: int = 32,
+                    seed: int = 0, device: Any = None, **kw) -> ModelBundle:
+    dev = resolve_device(device)
+    module = vit_tiny(num_classes=num_classes, image_size=input_size,
+                      device=dev, **kw)
+    return ModelBundle(_seeded(module, seed, dev),
+                       (input_size, input_size, 3), ViT.OUTPUT_NAMES,
+                       preprocess="scale_pm1", name="ViT_Tiny")
+
+
+def get_model(name: str, **kwargs: Any) -> ModelBundle:
+    if name not in ZOO:
+        raise KeyError(f"unknown zoo model {name!r}; available: {sorted(ZOO)}")
+    return ZOO[name](**kwargs)

@@ -1,0 +1,225 @@
+"""Flash attention: the hand-written CUDA kernel and its plain PyTorch version.
+
+The port of ``mmlspark_tpu/ops/pallas/attention.py:flash_attention`` (the
+Pallas kernel ``_flash_call``), the serving-path attention of the ViT.
+Same function: q/k/v ``[B, H, T, D]`` in bfloat16 or float32, upcast to
+float32; one ``[B, Tq, Tk]`` int8 keep-mask shared by every head, built
+from ``kv_mask`` (``[B, Tk]``, True = real key) and ``causal``; the
+online softmax over key blocks with a running max and denominator; the
+f32 scale ``1/sqrt(D)``; float32 output ``[B, H, Tq, D]``, with fully
+masked query rows exact zeros through the denominator floor ``1e-30``.
+
+* :func:`flash_attention_reference` is the plain version, written from
+  the JAX package's ``_online_update``/``_flash_tile`` (block loop, the
+  ``-inf`` guards and the floor), batched over (batch, head). The CPU
+  tests hold it against the JAX function; ``chip_smoke.py`` holds the
+  kernel against it on the card.
+* :func:`flash_attention` dispatches on ``impl``: ``"auto"`` takes the
+  kernel for CUDA tensors and the plain version for CPU tensors;
+  ``"cuda"`` and ``"torch"`` force one or the other. A CUDA tensor under
+  ``"auto"`` reaches the kernel or raises — there is no fallback.
+* ``launches`` counts the kernel's launches (one per call that reaches
+  ``ops/csrc/flash_attention.cu``), so a run can show that its path went
+  through the kernel.
+
+The kernel supports head widths ``D <= 128`` with ``D % 8 == 0``; the
+wrapper raises on any other ``D``, on another dtype, on operands on
+different devices, and on operands whose last axis is not contiguous (the
+kernel takes batch/head/token strides, so the ``[B,T,H,D] → [B,H,T,D]``
+transpose of the projections needs no copy).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+IMPLS = ("auto", "cuda", "torch")
+
+# key-block width of the plain version's online-softmax loop (the JAX
+# package's DEFAULT_BLOCK_K); the kernel walks keys in its own stripes
+DEFAULT_BLOCK_K = 128
+
+# the denominator guard for fully-masked query rows
+_DENOM_FLOOR = 1e-30
+
+MAX_D = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel; reset by whoever reads it
+launches = 0
+_count_lock = threading.Lock()
+
+
+def _online_update(q, ks, vs, keep, m, denom, acc, scale):
+    """One key block's update of the online softmax, batched: ``q``
+    ``[..., Tq, D]`` f32, ``ks``/``vs`` ``[..., bk, D]`` f32, ``keep``
+    ``[..., Tq, bk]`` bool, carry ``m``/``denom`` ``[..., Tq, 1]`` and
+    ``acc`` ``[..., Tq, D]`` f32."""
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32,
+                           device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    scores = torch.matmul(q, ks.transpose(-1, -2)) * scale
+    scores = torch.where(keep, scores, neg_inf)
+    blk_max = scores.amax(dim=-1, keepdim=True)
+    m_new = torch.maximum(m, blk_max)
+    # guard -inf - -inf (rows with every key masked so far)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), zero)
+    p = torch.exp(torch.where(torch.isfinite(scores), scores - m_new,
+                              neg_inf))
+    acc = acc * corr + torch.matmul(p, vs)
+    denom = denom * corr + p.sum(dim=-1, keepdim=True)
+    return m_new, denom, acc
+
+
+def flash_attention_reference(q, k, v, mask3, scale,
+                              block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch flash attention: the block loop of
+    ``_flash_tile`` over (batch, head) at once. ``q``/``k``/``v``
+    ``[B, H, T, D]`` of any float dtype (upcast to f32), ``mask3``
+    ``[B, Tq, Tk]`` int8 (nonzero = attend). Returns ``[B, H, Tq, D]``
+    float32."""
+    q = q.float()
+    k = k.float()
+    v = v.float()
+    keep = (mask3 != 0)[:, None]                      # [B, 1, Tq, Tk]
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    m = torch.full((b, h, tq, 1), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    denom = torch.zeros((b, h, tq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    s = float(np.float32(scale))
+    for start in range(0, tk, block_k):
+        stop = min(start + block_k, tk)
+        m, denom, acc = _online_update(
+            q, k[:, :, start:stop], v[:, :, start:stop],
+            keep[..., start:stop], m, denom, acc, s)
+    return acc / torch.clamp(denom, min=_DENOM_FLOOR)
+
+
+def mask3(b: int, tq: int, tk: int, kv_mask, causal: bool,
+          device) -> torch.Tensor:
+    """The one ``[B, Tq, Tk]`` int8 keep-mask every implementation
+    consumes (1 = attend), contiguous."""
+    if kv_mask is None:
+        keep = torch.ones((b, tq, tk), dtype=torch.bool, device=device)
+    else:
+        kv = torch.as_tensor(kv_mask, device=device).to(torch.bool)
+        if tuple(kv.shape) != (b, tk):
+            raise ValueError(
+                f"kv_mask must be [B, Tk] = {(b, tk)}, got {tuple(kv.shape)}")
+        keep = kv[:, None, :].expand(b, tq, tk)
+    if causal:
+        keep = keep & torch.ones((tq, tk), dtype=torch.bool,
+                                 device=device).tril()[None]
+    return keep.to(torch.int8).contiguous()
+
+
+def resolve_scale(scale, d: int) -> float:
+    """The f32 softmax scale, as the Python float of an f32 value so that
+    every implementation multiplies by the bit-identical constant."""
+    return float(np.float32(1.0 / np.sqrt(d) if scale is None else scale))
+
+
+def resolve_impl(impl: str, q: torch.Tensor) -> str:
+    """``auto`` → the kernel for CUDA tensors, the plain version for CPU
+    tensors. ``cuda`` on CPU tensors raises."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+    if impl == "auto":
+        return "cuda" if q.is_cuda else "torch"
+    if impl == "cuda" and not q.is_cuda:
+        raise ValueError(
+            "impl='cuda' runs the CUDA kernel and needs CUDA tensors; "
+            f"got tensors on {q.device}")
+    return impl
+
+
+def _check_operands(q, k, v) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be [B, H, T, D], got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(
+                f"{name} has dtype {t.dtype}; flash_attention takes "
+                "torch.float32 or torch.bfloat16")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d > MAX_D or d % 8:
+        raise ValueError(
+            f"head width D={d} unsupported: the kernel takes D <= {MAX_D} "
+            "with D a multiple of 8")
+
+
+def _kernel_fn():
+    """The C entry point of ``ops/csrc/flash_attention.cu``, built on
+    first use, with every argument typed (pointers and the stream as
+    ``c_void_p``: untyped, ctypes would pass them as 32-bit ints)."""
+    from mmlspark_tpu_torch.ops import _build
+    fn = _build.load("flash_attention").flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_longlong] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _flash_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
+    """Launch the kernel on the current stream; the output is allocated
+    here, the kernel allocates nothing."""
+    global launches
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"{name} must have a contiguous last axis (the kernel takes "
+                f"batch/head/token strides); got strides {t.stride()}")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    fn = _kernel_fn()
+    out = torch.empty((b, h, tq, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with _count_lock:
+            launches += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(),
+                 out.data_ptr(), _DTYPES[q.dtype], b, h, tq, tk, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: cudaError {err} "
+            f"(B={b}, H={h}, Tq={tq}, Tk={tk}, D={d}, dtype={q.dtype})")
+    return out
+
+
+def flash_attention(q, k, v, kv_mask=None, causal: bool = False,
+                    scale=None, impl: str = "auto",
+                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Fused attention over ``[B, H, T, D]`` operands. ``kv_mask``:
+    ``[B, Tk]`` bool key-validity mask (True = real key); ``causal`` adds
+    the lower-triangular constraint. Returns ``[B, H, Tq, D]`` float32
+    (callers cast back to their compute dtype); fully-masked query rows
+    are exact zeros. ``block_k`` is the plain version's key-block width;
+    the kernel uses its own stripes."""
+    _check_operands(q, k, v)
+    route = resolve_impl(impl, q)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    keep = mask3(b, tq, tk, kv_mask, causal, q.device)
+    s = resolve_scale(scale, d)
+    if route == "cuda":
+        return _flash_cuda(q, k, v, keep, s)
+    return flash_attention_reference(q, k, v, keep, s, block_k)

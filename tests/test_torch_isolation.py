@@ -1,0 +1,105 @@
+"""The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
+package, and it never runs on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "mmlspark_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) > 10
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imports(p) if _forbidden(m)]
+    assert bad == []
+
+
+def test_serving_on_cpu_loads_no_jax_module():
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from mmlspark_tpu_torch.data.table import DataTable
+        from mmlspark_tpu_torch.models.zoo import get_model
+        from mmlspark_tpu_torch.serve.config import ServeConfig
+        from mmlspark_tpu_torch.serve.server import ModelServer
+        bundle = get_model("ViT_Tiny", device="cpu")
+        image = np.zeros((32, 32, 3), np.uint8)
+        with ModelServer(ServeConfig(buckets=(1, 2))) as server:
+            server.add_model("vit", bundle, device="cpu")
+            out = server.predict("vit", DataTable({"input": [image] * 2}))
+        assert len(out["scores"]) == 2
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.device import resolve_device
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.models.vit import vit_tiny
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.serve.server import ModelServer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("ViT_Tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vit_tiny()
+    bundle = get_model("ViT_Tiny", device="cpu")
+    table = DataTable({"input": [np.zeros((32, 32, 3), np.uint8)]})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchModel(model=bundle).transform(table)
+    with ModelServer() as server:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            server.add_model("vit", bundle)
+        assert server.models() == []
+    assert resolve_device("cpu") == torch.device("cpu")

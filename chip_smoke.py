@@ -1,34 +1,58 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # every phase
+    python3 chip_smoke.py --phases group_norm,resize   # a subset
 
-Four phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. **device** — the card (``nvidia-smi`` name and power limit), the torch
    and CUDA versions, and the build of every kernel source under
    ``mmlspark_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all started
    together) with the registers and spills ``ptxas`` reports;
-2. **kernel** — each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it (ViT-B/16 attention: B in
-   {1, 8, 32}, H=12, T=196, D=64, bf16 and f32, on the strided
-   ``[B,T,H,D] → [B,H,T,D]`` view the model passes) and at the edge cases
-   (fully masked rows, causal, ragged T=77, D in {32, 128}), with its
-   time, the plain version's, one PyTorch library call's and the bound;
-3. **serve** — ViT-B/16 at full width (weights from a seed) served through
+2. **attention** — the flash-attention kernel against its plain PyTorch
+   version on the card, at the shapes the serving path gives it (ViT-B/16
+   attention: B in {1, 8, 32}, H=12, T=196, D=64, bf16 and f32, on the
+   strided ``[B,T,H,D] → [B,H,T,D]`` view the model passes) and at the
+   edge cases (fully masked rows, causal, ragged T=77, D in {32, 128}),
+   with its time, the plain version's, one PyTorch library call's and the
+   bound;
+3. **group_norm** — the GroupNorm kernel against its plain version at the
+   12 distinct GroupNorm shapes of ResNet-50 at 224² (N=64, bf16 and f32,
+   with and without the fused ReLU as the network uses it) and at the
+   edge cases (mean 200 / spread 0.02, C=64 in 32 groups, a ragged H·W,
+   N=1); per shape in bf16 its time, the plain version's, ``F.group_norm``'s
+   and the bound, and their sums over the 53 sites of one forward;
+4. **resize** — the fused crop → resize → scale kernel against its plain
+   version at the training geometry (N=64, 256² source, 240² window,
+   224² out, C=3, offsets at 0, at the maximum and out of range) and at
+   the edge cases (crop == source, one output row, C=1, a non-square
+   window), with its time, the plain version's and the bound;
+5. **serve** — ViT-B/16 at full width (weights from a seed) served through
    ``ModelServer(ServeConfig(buckets=(1, 8, 32)))``: concurrent requests
    of 1–20 uint8 224×224×3 images; every answer held against the same rows
    through the plain-attention path on the card; the kernel's launch count
    over the run must be exactly 12 per forward, warmup included;
-4. **kernels** — one line listing every ported kernel.
+6. **train** — ResNet-50 (GroupNorm) at full width trained through
+   ``Trainer.fit_arrays`` for 7 steps of 64 rows with on-device
+   preprocessing (random 240² window of a 256² uint8 source, bilinear
+   resize to 224², flips, ImageNet standardisation): every loss finite,
+   the GroupNorm kernel launched 53 times and the resize kernel once per
+   step; the first step held against the same weights, batch and draws
+   through the plain versions, in float32 and in bf16; then one step
+   split by CUDA events and traced by ``torch.profiler`` (device busy
+   and idle time, the kernels' and the GroupNorm backward's share);
+7. **kernels** — one line listing every ported kernel.
 
-Then the card's name and power limit, and last the result line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without it,
-as does a machine without CUDA or a directory without the package.
+Then the card's name and power limit, and last, when every phase ran, the
+result line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+without it, as does a machine without CUDA or a directory without the
+package.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -40,6 +64,8 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+PHASES = ("attention", "serve", "group_norm", "resize", "train")
 
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
 # device memory and operations/s by operand type
@@ -60,10 +86,57 @@ KERNEL_TOL = 1e-4
 # three such steps
 SERVE_TOL = 5e-2
 
+# GroupNorm kernel vs plain version. Both take float32 statistics with the
+# centred variance, summed in other orders, and the kernel contracts the
+# scale-and-bias into an FMA: float32 outputs of unit spread differ in the
+# last bits (GN_TOL_F32). At mean 200 and spread 0.02 one float32 step of
+# the mean (1.5e-5) is 7.6e-4 of the spread, and the two sum a group in
+# other orders (GN_TOL_OFFSET). In bfloat16 both round one float32 result,
+# so a value at a rounding boundary lands one bfloat16 step apart: at most
+# 2^-7 of its magnitude (GN_TOL_BF16_REL), plus GN_TOL_F32 for values that
+# round to 0
+GN_TOL_F32 = 1e-4
+GN_TOL_OFFSET = 5e-3
+GN_TOL_BF16_REL = 2.0 ** -7
+# operations per element of one GroupNorm call: the sum, the centred
+# square (sub, mul, add), the normalise (sub, mul, FMA) and the ReLU
+GN_OPS_PER_ELEMENT = 9
+
+# the resize kernel runs the plain version's float32 operations in the
+# same order, each rounded on its own (no FMA): equal bit for bit
+RESIZE_TOL = 0.0
+# operations per output value: four products, three sums, the scale
+RESIZE_OPS_PER_OUTPUT = 8
+
 VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 12, 196, 64
 SERVE_BUCKETS = (1, 8, 32)
 SERVE_CLIENTS = 6
 SERVE_REQUESTS_PER_CLIENT = 8
+
+# the training run: 424 rows = 7 steps of 64, the last with 40 real rows
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_SRC = 424, 64, 256
+TRAIN_CROP, TRAIN_SIDE, TRAIN_CLASSES = 240, 224, 1000
+GN_SITES_RESNET50 = 53
+# first step, GroupNorm and resize kernels vs their plain versions on the
+# same weights, batch and draws. The step's update (parameters after the
+# step minus before) is compared whole: the norm of the difference of two
+# updates over the norm of the reference update.
+# * float32 model: both routes compute in float32 and differ in the
+#   GroupNorm statistics' summation order (and one FMA), ~3e-6 of each
+#   output, which 50 layers' forward and backward at random weights grow:
+#   measured 1.8e-3 (7.6e-3 for the worst tensor, the stage-0 projection's
+#   GroupNorm bias). A wrong statistic or a wrong layout moves the update
+#   by order 1;
+# * bf16 model: the resize outputs are equal bit for bit, but a GroupNorm
+#   output one bf16 step apart changes what the following bf16 convs round,
+#   and the layers after it carry that on, so the two routes' updates lie
+#   well apart (13%, measured). Each is held against the float32 step: the
+#   kernel route may lie at most TRAIN_BF16_RATIO_TOL times as far from it
+#   as the plain route does. The loss is a mean over 64 rows of about
+#   ln(1000) = 6.9: TRAIN_LOSS_TOL is 1e-3 of it
+TRAIN_LOSS_TOL = 7e-3
+TRAIN_UPDATE_TOL_F32 = 1e-2
+TRAIN_BF16_RATIO_TOL = 1.5
 
 
 def emit(obj: dict) -> None:
@@ -103,18 +176,42 @@ def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def attention_bound(b, h, tq, tk, d, dtype) -> tuple[float, str]:
-    """The least time in ms for flash attention on these operands: each
-    input read once (q/k/v in their type, the int8 mask), the f32 output
-    written once, and 4·B·H·Tq·Tk·D operations at the peak for the
-    operand type. Returns (ms, "bytes" | "operations")."""
-    elt = 2 if dtype == "bfloat16" else 4
-    nbytes = (b * h * (tq + 2 * tk) * d * elt + b * h * tq * d * 4
-              + b * tq * tk)
-    ops = 4 * b * h * tq * tk * d
+def bound(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
+    """The least time in ms for work that moves ``nbytes`` and does
+    ``ops`` operations of type ``dtype``: the larger of the two at the
+    card's peaks. Returns (ms, "bytes" | "operations")."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(b, h, tq, tk, d, dtype) -> tuple[float, str]:
+    """Flash attention on these operands: each input read once (q/k/v in
+    their type, the int8 mask), the f32 output written once, and
+    4·B·H·Tq·Tk·D operations at the peak for the operand type."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (b * h * (tq + 2 * tk) * d * elt + b * h * tq * d * 4
+              + b * tq * tk)
+    return bound(nbytes, 4 * b * h * tq * tk * d, dtype)
+
+
+def group_norm_bound(n, h, w, c, dtype) -> tuple[float, str]:
+    """GroupNorm over ``[N, H, W, C]``: x read once, the output written
+    once in x's type, scale and bias read once (f32), and
+    GN_OPS_PER_ELEMENT float32 operations an element."""
+    elt = 2 if dtype == "bfloat16" else 4
+    elems = n * h * w * c
+    return bound(2 * elems * elt + 2 * c * 4, GN_OPS_PER_ELEMENT * elems,
+                 "float32")
+
+
+def resize_bound(n, ch, cw, oh, ow, c) -> tuple[float, str]:
+    """Fused crop → resize → scale: each sample's uint8 window read once,
+    the f32 output written once, the int32 offsets read once, and
+    RESIZE_OPS_PER_OUTPUT float32 operations an output value."""
+    outs = n * oh * ow * c
+    return bound(n * ch * cw * c + 4 * outs + 8 * n,
+                 RESIZE_OPS_PER_OUTPUT * outs, "float32")
 
 
 def phase_device() -> dict:
@@ -147,7 +244,7 @@ def _attention_inputs(b, h, t, d, dtype, gen, strided):
     return [x.transpose(1, 2) if strided else x for x in qkv]
 
 
-def phase_kernel() -> dict:
+def phase_attention() -> dict:
     """Every flash-attention case against the plain version; timings at
     the ViT-B/16 shapes. Returns the figures of the main path's shape
     (B=32, bf16) plus the largest error over every case."""
@@ -229,6 +326,217 @@ def phase_kernel() -> dict:
     return {**main, "max_abs_err": worst}
 
 
+def resnet50_gn_sites() -> list[tuple]:
+    """``((H, W, C), groups, relu)`` of every GroupNorm call of one
+    ResNet-50 forward at 224², in order, read off the model itself."""
+    import torch
+
+    from mmlspark_tpu_torch.models.resnet import GroupNorm, resnet50
+    model = resnet50(gn_impl="torch")
+    sites: list[tuple] = []
+
+    def hook(mod, args, kwargs):
+        sites.append((tuple(args[0].shape[1:]), mod.groups,
+                      bool(kwargs.get("relu", False))))
+
+    for m in model.modules():
+        if isinstance(m, GroupNorm):
+            m.register_forward_pre_hook(hook, with_kwargs=True)
+    with torch.no_grad():
+        model(torch.zeros(1, TRAIN_SIDE, TRAIN_SIDE, 3, device="cuda"))
+    return sites
+
+
+def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0):
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    x = (center + spread * torch.randn(shape, generator=gen,
+                                       device="cuda")).to(dtype)
+    scale = torch.randn(shape[-1], generator=gen, device="cuda")
+    bias = torch.randn(shape[-1], generator=gen, device="cuda")
+    got = gn.group_norm(x, scale, bias, groups, relu=relu)
+    torch.cuda.synchronize()
+    want = gn.group_norm(x, scale, bias, groups, relu=relu, impl="torch")
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"kernel output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        tol = "one bf16 step: 2^-7·|plain| + 1e-4"
+        ok = bool((diff <= GN_TOL_BF16_REL * want.float().abs()
+                   + GN_TOL_F32).all())
+    else:
+        atol = GN_TOL_F32 if spread >= 1 else GN_TOL_OFFSET
+        tol = atol
+        ok = bool((diff <= atol).all())
+    row = {"phase": "kernel", "kernel": "group_norm", "shape": list(shape),
+           "groups": groups, "relu": relu,
+           "dtype": str(dtype).replace("torch.", ""), "center": center,
+           "spread": spread, "max_abs_err": float(diff.max()), "tol": tol}
+    return row, ok, (x, scale, bias)
+
+
+def phase_group_norm() -> dict:
+    """The GroupNorm kernel against its plain version at every ResNet-50
+    shape and the edge cases; times at N=64 bf16. Returns the per-forward
+    sums over the 53 sites and the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    sites = resnet50_gn_sites()
+    check(len(sites) == GN_SITES_RESNET50,
+          f"{len(sites)} GroupNorm sites in ResNet-50, expected 53")
+    shapes: dict[tuple, dict] = {}
+    for hwc, groups, relu in sites:
+        entry = shapes.setdefault((hwc, groups),
+                                  {"sites": 0, "relu": set()})
+        entry["sites"] += 1
+        entry["relu"].add(relu)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = TRAIN_BATCH
+    worst = 0.0
+    per_shape = {}
+    for (hwc, groups), entry in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for relu in sorted(entry["relu"]):
+                row, ok, (x, scale, bias) = _gn_case(
+                    (n,) + hwc, groups, relu, dtype, gen)
+                worst = max(worst, row["max_abs_err"])
+                row["sites"] = entry["sites"]
+                timed = dtype == torch.bfloat16 and (hwc, groups) \
+                    not in per_shape
+                if timed:
+                    row["ms"] = time_ms(lambda: gn._group_norm_cuda(
+                        x, scale, bias, groups, gn.DEFAULT_EPS, relu))
+                    row["plain_ms"] = time_ms(
+                        lambda: gn.group_norm_reference(x, scale, bias,
+                                                        groups, relu=relu))
+                    # the same function without the fused ReLU, on the
+                    # channels-last NCHW view, scale and bias in x's type
+                    xc = x.permute(0, 3, 1, 2)
+                    sc, bc = scale.to(dtype), bias.to(dtype)
+                    row["library_ms"] = time_ms(
+                        lambda: F.group_norm(xc, groups, sc, bc,
+                                             gn.DEFAULT_EPS))
+                    # the kernel route's backward: the plain version
+                    # recomputed and differentiated
+                    g = torch.randn(x.shape, generator=gen,
+                                    device="cuda").to(dtype)
+                    row["backward_ms"] = time_ms(
+                        lambda: gn.group_norm_backward(g, x, scale, bias,
+                                                       groups, relu=relu))
+                    row["bound_ms"], row["bound_by"] = group_norm_bound(
+                        n, *hwc, "bfloat16")
+                    row["x_bound"] = row["ms"] / row["bound_ms"]
+                    per_shape[(hwc, groups)] = row
+                emit(row)
+                check(ok, f"group_norm kernel differs from its plain "
+                          f"version past tolerance on {row}")
+                del x, scale, bias
+    edge = [((4, 28, 28, 256), 32, True, torch.float32, 200.0, 0.02),
+            ((2, 9, 9, 64), 32, True, torch.bfloat16, 0.0, 1.0),
+            ((n, 13, 11, 96), 32, False, torch.bfloat16, 0.0, 1.0),
+            ((n, 7, 7, 2048), 32, True, torch.float32, 0.0, 1.0),
+            ((1, 56, 56, 256), 32, True, torch.bfloat16, 0.0, 1.0),
+            ((1, 7, 7, 512), 32, False, torch.float32, 0.0, 1.0)]
+    for shape, groups, relu, dtype, center, spread in edge:
+        row, ok, _ = _gn_case(shape, groups, relu, dtype, gen, center,
+                              spread)
+        worst = max(worst, row["max_abs_err"])
+        row["edge"] = True
+        emit(row)
+        check(ok, f"group_norm kernel differs from its plain version past "
+                  f"tolerance on {row}")
+    total = {key: sum(r[key] * r["sites"] for r in per_shape.values())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "backward_ms")}
+    out = {"phase": "kernel", "kernel": "group_norm",
+           "per_forward": "sum over the 53 sites of one ResNet-50 "
+                          "forward, N=64, bf16",
+           "distinct_shapes": len(per_shape),
+           "elements_per_sample": sum(int(np.prod(s[0])) for s in sites),
+           **total, "x_bound": total["ms"] / total["bound_ms"],
+           "max_abs_err": worst}
+    emit(out)
+    return {**total, "bound_by": "bytes", "max_abs_err": worst}
+
+
+def _resize_case(n, h, w, c, crop, out_hw, gen, offsets=None):
+    import torch
+
+    from mmlspark_tpu_torch.ops import resize as rs
+    x = torch.randint(0, 256, (n, h, w, c), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    if offsets is None:
+        oy = torch.randint(0, h - crop[0] + 1, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        ox = torch.randint(0, w - crop[1] + 1, (n,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    else:
+        oy, ox = (torch.tensor(o, dtype=torch.int32, device="cuda")
+                  for o in offsets)
+    scale = 1.0 / 255.0
+    got = rs.fused_resize_norm(x, oy, ox, crop, out_hw, scale)
+    torch.cuda.synchronize()
+    want = rs.fused_resize_norm(x, oy, ox, crop, out_hw, scale,
+                                impl="torch")
+    check(got.dtype == torch.float32 and got.shape == want.shape
+          and tuple(got.shape) == (n, *out_hw, c),
+          f"kernel output {got.dtype} {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    row = {"phase": "kernel", "kernel": "fused_resize_norm",
+           "N": n, "src": [h, w, c], "crop": list(crop),
+           "out": list(out_hw), "max_abs_err": err, "tol": RESIZE_TOL}
+    return row, (x, oy, ox, scale)
+
+
+def phase_resize() -> dict:
+    """The resize kernel against its plain version at the training
+    geometry and the edge cases; times at the training geometry."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import resize as rs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, src, crop, side = TRAIN_BATCH, TRAIN_SRC, TRAIN_CROP, TRAIN_SIDE
+    hi = src - crop
+    rng = np.random.default_rng(0)
+    oy = rng.integers(0, hi + 1, n)
+    ox = rng.integers(0, hi + 1, n)
+    # 0 and the maximum on both axes, then starts out of range: a negative
+    # one counts from the end of the axis, then both clamp into the image
+    oy[:4], ox[:4] = (0, hi, -5, src + 40), (hi, 0, src + 40, -300)
+    cases = [(n, src, src, 3, (crop, crop), (side, side), (oy, ox), True),
+             (n, src, src, 3, (crop, crop), (side, side), None, False),
+             (4, 64, 48, 3, (64, 48), (32, 40), None, False),
+             (3, 20, 16, 3, (14, 9), (1, 11), None, False),
+             (3, 20, 16, 1, (14, 9), (6, 11), None, False),
+             (4, 100, 80, 3, (90, 50), (64, 48), None, False)]
+    worst = 0.0
+    main = None
+    for nn_, h, w, c, cr, out_hw, offs, timed in cases:
+        row, (x, oy_t, ox_t, scale) = _resize_case(nn_, h, w, c, cr,
+                                                   out_hw, gen, offs)
+        worst = max(worst, row["max_abs_err"])
+        if timed:
+            row["offsets"] = "0, max, and out of range at rows 0-3"
+            row["ms"] = time_ms(lambda: rs._resize_cuda(
+                x, oy_t, ox_t, cr, out_hw, scale))
+            row["plain_ms"] = time_ms(lambda: rs.fused_resize_norm_reference(
+                x, oy_t, ox_t, cr, out_hw, scale))
+            row["library_ms"] = None
+            row["bound_ms"], row["bound_by"] = resize_bound(
+                nn_, *cr, *out_hw, c)
+            row["x_bound"] = row["ms"] / row["bound_ms"]
+            main = row
+        emit(row)
+        check(row["max_abs_err"] <= RESIZE_TOL,
+              f"fused_resize_norm kernel differs from its plain version on "
+              f"{row}")
+    return {**main, "max_abs_err": worst}
+
+
 def _set_attention_impl(module, impl: str) -> None:
     from mmlspark_tpu_torch.models.vit import BhtdSelfAttention
     for m in module.modules():
@@ -236,10 +544,10 @@ def _set_attention_impl(module, impl: str) -> None:
             m.impl = impl
 
 
-def phase_serve(card: str, kernel_ms: float) -> int:
+def phase_serve(card: str, kernel_ms: float | None) -> int:
     """Serve full-width ViT-B/16; returns the kernel launches of the
-    run. ``kernel_ms`` is the kernel's time at the largest bucket, for
-    the share of a forward it takes."""
+    run. ``kernel_ms`` is the kernel's time at the largest bucket (when
+    the attention phase ran), for the share of a forward it takes."""
     import torch
 
     from mmlspark_tpu_torch.data.table import DataTable
@@ -343,7 +651,8 @@ def phase_serve(card: str, kernel_ms: float) -> int:
           "forward_ms": {"batch": max(SERVE_BUCKETS), "kernel": forward_ms,
                          "plain_attention": plain_forward_ms,
                          "attention_kernel_share":
-                         12 * kernel_ms / forward_ms},
+                         None if kernel_ms is None
+                         else 12 * kernel_ms / forward_ms},
           "max_abs_err_vs_plain_attention": worst,
           "logit_max_abs": float(np.abs(ref).max()), "tol": SERVE_TOL,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -353,7 +662,276 @@ def phase_serve(card: str, kernel_ms: float) -> int:
     return launches
 
 
+def _train_config(impl: str):
+    from mmlspark_tpu_torch.train.loop import TrainConfig
+    from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
+    return TrainConfig(
+        batch_size=TRAIN_BATCH, optimizer="momentum", learning_rate=0.01,
+        log_every=1, prefetch_depth=2,
+        preprocess=DevicePreprocess(
+            src_crop=(TRAIN_CROP, TRAIN_CROP),
+            resize=(TRAIN_SIDE, TRAIN_SIDE), flip_lr=True,
+            mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+            impl=impl))
+
+
+def _first_step(gn_impl: str, impl: str, init: dict, batch,
+                dtype=None) -> tuple:
+    """One step from ``init`` on ``batch`` through the given routes, in
+    the model's compute ``dtype`` (default bf16); returns (loss,
+    parameters after the step)."""
+    import torch
+
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.train.loop import Trainer
+    kw = {} if dtype is None else {"dtype": dtype}
+    module = get_model("ResNet50", seed=0, gn_impl=gn_impl, **kw).module
+    trainer = Trainer(module, _train_config(impl), initial_state_dict=init)
+    dx, dy, dw = (torch.from_numpy(a).cuda() for a in batch)
+    loss = float(trainer.train_step(dx, dy, dw))
+    params = {k: v.detach().clone() for k, v in trainer.state_dict().items()}
+    del trainer, module
+    return loss, params
+
+
+def _update_gap(a: dict, b: dict, init: dict) -> dict:
+    """How far two runs' updates (parameters after a step minus ``init``)
+    lie apart: the norm of their difference over the norm of ``b``'s
+    update, over all parameters and for the worst tensor, and the largest
+    elementwise gap."""
+    diff = norm = 0.0
+    worst = (0.0, "")
+    for k in a:
+        d = float((a[k] - b[k]).float().norm()) ** 2
+        u = float((b[k] - init[k]).float().norm()) ** 2
+        diff, norm = diff + d, norm + u
+        if u > 0:
+            worst = max(worst, ((d / u) ** 0.5, k))
+    return {"relative": (diff / norm) ** 0.5, "worst_tensor": worst,
+            "max_abs": max(float((a[k] - b[k]).abs().max()) for k in a)}
+
+
+def _step_breakdown(batch) -> dict:
+    """Where one training step at N=64 through the kernels spends its
+    time. ``wall``: host clock around 5 steps, each ended by a
+    synchronise. ``forward``/``forward_backward``: CUDA events (median of
+    10), which count the device waiting on the host too. Then one step
+    under ``torch.profiler``: the device's busy time (kernels and copies),
+    its idle share of ``wall``, the device time of the GroupNorm forward
+    kernels, of the GroupNorm backward (the kernels launched inside its
+    53 calls) and of the resize kernel, and the busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    from mmlspark_tpu_torch.train.loop import Trainer
+    module = get_model("ResNet50", seed=0).module
+    trainer = Trainer(module, _train_config("auto"))
+    dx, dy, dw = (torch.from_numpy(a).cuda() for a in batch)
+    xp = trainer._prep_x(dx, 0)
+
+    def forward():
+        with torch.no_grad():
+            module(xp)
+
+    def forward_backward():
+        per = trainer.loss_fn(module(xp), dy)
+        ((per * dw).sum() / dw.sum()).backward()
+
+    out = {"forward": time_ms(forward, reps=10),
+           "forward_backward": time_ms(forward_backward, reps=10)}
+    for _ in range(2):
+        trainer.train_step(dx, dy, dw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        trainer.train_step(dx, dy, dw)
+        torch.cuda.synchronize()
+    out["wall"] = (time.perf_counter() - t0) / 5 * 1e3
+
+    inner = gn_op.group_norm_backward
+    gn_bwd = "chip_smoke.group_norm_backward"
+
+    def marked_backward(*args, **kwargs):
+        with record_function(gn_bwd):
+            return inner(*args, **kwargs)
+
+    gn_op.group_norm_backward = marked_backward
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(dx, dy, dw)
+            torch.cuda.synchronize()
+    finally:
+        gn_op.group_norm_backward = inner
+    events = prof.key_averages()
+    # device work: the kernel and copy events (a host op's own device
+    # time repeats its kernels'; the range's device-side annotation spans
+    # kernels and gaps). The range's host event sums the device time of
+    # the kernels launched inside it
+    marked = [e for e in events
+              if e.key == gn_bwd and e.device_type == DeviceType.CPU]
+    check(len(marked) == 1 and marked[0].count == GN_SITES_RESNET50,
+          f"GroupNorm backward ranges in the profiled step: "
+          f"{[(str(e.device_type), e.count) for e in marked]}")
+    device = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in events
+              if e.device_type == DeviceType.CUDA and e.key != gn_bwd
+              and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in device)
+    out["profile"] = {
+        "device_busy": busy,
+        "device_idle_share_of_wall": 1 - busy / out["wall"],
+        "group_norm_forward_kernels": sum(
+            ms for key, ms, _ in device
+            if any(k in key for k in ("gn_tile_stats", "gn_merge",
+                                      "gn_apply"))),
+        "group_norm_backward": marked[0].device_time_total / 1e3,
+        "resize_kernel": sum(ms for key, ms, _ in device
+                             if "resize_kernel" in key),
+        "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                        sorted(device, key=lambda d: -d[1])[:8]]}
+    del trainer, module
+    return out
+
+
+def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
+    """Train full-width ResNet-50 through ``Trainer.fit_arrays``; returns
+    the launch counts of the run. ``gn``/``rs`` are the kernel phases'
+    figures (when they ran), for each kernel's share of a step."""
+    import torch
+
+    from mmlspark_tpu_torch.models.resnet import gn_sites
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    from mmlspark_tpu_torch.ops import resize as rs_op
+    from mmlspark_tpu_torch.train.loop import Trainer, _batches
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (TRAIN_ROWS, TRAIN_SRC, TRAIN_SRC, 3),
+                     dtype=np.uint8)
+    y = rng.integers(0, TRAIN_CLASSES, TRAIN_ROWS).astype(np.int64)
+    module = get_model("ResNet50", seed=0).module
+    check(gn_sites(module) == GN_SITES_RESNET50,
+          f"{gn_sites(module)} GroupNorm sites, expected 53")
+    init = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    cfg = _train_config("auto")
+    trainer = Trainer(module, cfg)
+    steps = -(-TRAIN_ROWS // TRAIN_BATCH)
+    setup_s = time.perf_counter() - t0
+
+    # the main path: launch counts from 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gn_op.launches = 0
+    rs_op.launches = 0
+    t_fit = time.perf_counter()
+    trainer.fit_arrays(x, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = {"group_norm": gn_op.launches,
+                "fused_resize_norm": rs_op.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(trainer.global_step == steps, f"{trainer.global_step} steps, "
+                                        f"expected {steps}")
+    check(len(trainer.history) == steps and all(
+        np.isfinite(v) for v in trainer.history),
+        f"losses {trainer.history}")
+    check(launches["group_norm"] == GN_SITES_RESNET50 * steps,
+          f"{launches['group_norm']} group_norm launches in {steps} steps, "
+          "expected 53 per step")
+    check(launches["fused_resize_norm"] == steps,
+          f"{launches['fused_resize_norm']} resize launches in {steps} "
+          "steps, expected 1 per step")
+    step_ms = trainer.step_ms
+    after_first = step_ms[1:]
+    step_med = statistics.median(after_first)
+    losses = list(trainer.history)
+    stats = trainer.input_stats
+    del trainer, module
+    torch.cuda.empty_cache()
+
+    # the first step again, from the same weights on the same batch with
+    # the same draws, through the kernels and through the plain versions:
+    # in float32, where the two must agree closely, and in bf16, where a
+    # GroupNorm output one bf16 step apart is carried on by every layer
+    # after it, so each bf16 route is held against the float32 step
+    first = next(_batches(x, y, TRAIN_BATCH, cfg.seed))
+    gn_op.launches = rs_op.launches = 0
+    loss_k32, params_k32 = _first_step("auto", "auto", init, first,
+                                       torch.float32)
+    loss_k, params_k = _first_step("auto", "auto", init, first)
+    check(gn_op.launches == 2 * GN_SITES_RESNET50 and rs_op.launches == 2,
+          "the kernel route of the first step missed a kernel")
+    launched = (gn_op.launches, rs_op.launches)
+    loss_p32, params_p32 = _first_step("torch", "torch", init, first,
+                                       torch.float32)
+    loss_p, params_p = _first_step("torch", "torch", init, first)
+    check((gn_op.launches, rs_op.launches) == launched,
+          "the plain route launched a kernel")
+    gap32 = _update_gap(params_k32, params_p32, init)
+    gap_k = _update_gap(params_k, params_p32, init)
+    gap_p = _update_gap(params_p, params_p32, init)
+    gap = _update_gap(params_k, params_p, init)
+    del params_k, params_p, params_k32, params_p32
+    breakdown = _step_breakdown(first)
+    out = {"phase": "train", "model": "ResNet50", "card": card,
+           "rows": TRAIN_ROWS, "batch": TRAIN_BATCH, "steps": steps,
+           "source": [TRAIN_SRC, TRAIN_SRC, 3],
+           "preprocess": "src_crop 240, resize 224, flip_lr, ImageNet "
+                         "mean/std",
+           "losses": losses, "setup_s": setup_s, "fit_wall_s": fit_s,
+           "step_ms": step_ms, "step_ms_median_after_first": step_med,
+           "images_per_s_after_first": TRAIN_BATCH * len(after_first)
+           / (sum(after_first) / 1e3),
+           "input_bound_fraction": stats["input_bound_fraction"],
+           "input_wait_s": stats["input_wait_s"],
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "group_norm_share_of_step": None if gn is None
+           else gn["ms"] / step_med,
+           "resize_share_of_step": None if rs is None
+           else rs["ms"] / step_med,
+           "peak_memory_gb": peak_gb,
+           "first_step": {
+               "loss_kernels": loss_k, "loss_plain": loss_p,
+               "loss_gap": abs(loss_k - loss_p), "loss_tol": TRAIN_LOSS_TOL,
+               "loss_fit_arrays": losses[0],
+               "float32": {"loss_kernels": loss_k32, "loss_plain": loss_p32,
+                           "update_gap": gap32,
+                           "update_tol": TRAIN_UPDATE_TOL_F32},
+               "bf16_kernels_vs_float32": gap_k,
+               "bf16_plain_vs_float32": gap_p,
+               "bf16_ratio_tol": TRAIN_BF16_RATIO_TOL,
+               "bf16_kernels_vs_plain": gap},
+           "breakdown_ms": breakdown}
+    emit(out)
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          f"first-step loss through the kernels {loss_k} vs the plain "
+          f"versions {loss_p}: gap past {TRAIN_LOSS_TOL}")
+    check(gap32["relative"] <= TRAIN_UPDATE_TOL_F32,
+          f"float32 first step: the kernel and plain routes' updates differ "
+          f"by {gap32}, past {TRAIN_UPDATE_TOL_F32} (relative norm)")
+    check(gap_k["relative"]
+          <= TRAIN_BF16_RATIO_TOL * gap_p["relative"],
+          f"bf16 first step: the kernel route's update lies {gap_k} from "
+          f"the float32 step, the plain route's {gap_p}; past "
+          f"{TRAIN_BF16_RATIO_TOL}x")
+    return launches
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    args = parser.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {PHASES}")
     try:
         import torch
     except ImportError:
@@ -367,19 +945,51 @@ def main() -> int:
     from mmlspark_tpu_torch.device import resolve_device
     resolve_device()  # the float32 precision policy, before any compute
     dev = phase_device()
-    main_shape = phase_kernel()
-    launches = phase_serve(dev["nvidia_smi"], main_shape["ms"])
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "mmlspark_tpu_torch/ops/csrc/flash_attention.cu",
-        "replaces": "mmlspark_tpu/ops/pallas/attention.py:183",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"]}]})
+    card = dev["nvidia_smi"]
+    kernels = []
+    attn = phase_attention() if "attention" in phases else None
+    if "serve" in phases:
+        launches = phase_serve(card, attn["ms"] if attn else None)
+        torch.cuda.empty_cache()
+        if attn:
+            kernels.append({
+                "name": "flash_attention", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": "mmlspark_tpu/ops/pallas/attention.py:183",
+                "launches": launches, "max_abs_err": attn["max_abs_err"],
+                "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+                "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
+                "library_ms": attn["library_ms"]})
+    gn = phase_group_norm() if "group_norm" in phases else None
+    rs = phase_resize() if "resize" in phases else None
+    torch.cuda.empty_cache()
+    if "train" in phases:
+        launches = phase_train(card, gn, rs)
+        if gn:
+            kernels.append({
+                "name": "group_norm", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/group_norm.cu",
+                "replaces": "mmlspark_tpu/ops/group_norm.py:95",
+                "launches": launches["group_norm"],
+                "max_abs_err": gn["max_abs_err"], "ms": gn["ms"],
+                "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
+                "bound_by": gn["bound_by"], "library_ms": gn["library_ms"]})
+        if rs:
+            kernels.append({
+                "name": "fused_resize_norm", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/resize.cu",
+                "replaces": "mmlspark_tpu/ops/pallas/resize.py:155",
+                "launches": launches["fused_resize_norm"],
+                "max_abs_err": rs["max_abs_err"], "ms": rs["ms"],
+                "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
+                "bound_by": rs["bound_by"], "library_ms": None})
+    if kernels:
+        emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
+    if set(phases) != set(PHASES):
+        print(f"chip_smoke: partial run ({','.join(phases)}); no result "
+              "line", flush=True)
+        return 0
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -12,10 +12,18 @@ is a CUDA C++ kernel written for Hopper (``ops/csrc``), with its plain
 PyTorch version beside it; a CPU tensor takes the plain version, a CUDA
 tensor the kernel.
 
-The slice ported so far serves ViT-B/16 through :class:`ModelServer`:
-``ModelServer.add_model`` → ``DynamicBatcher`` → ``core.plan`` →
-``TorchModel`` forward, with ``ops.attention.flash_attention`` as the
-hand-written CUDA kernel. ROADMAP.md lists the slices still to come.
+Two paths are ported so far:
+
+* serving ViT-B/16 through :class:`ModelServer`: ``ModelServer.add_model``
+  → ``DynamicBatcher`` → ``core.plan`` → ``TorchModel`` forward, with
+  ``ops.attention.flash_attention`` as the hand-written CUDA kernel;
+* training the GroupNorm ResNet-50 on one device: ``Trainer.fit_arrays``
+  → ``DeviceLoader`` → one step (``DevicePreprocess`` with
+  ``ops.resize.fused_resize_norm``, the forward with
+  ``ops.group_norm.group_norm`` at every norm site, a masked loss, the
+  backward and the optimizer), both ops hand-written CUDA kernels.
+
+ROADMAP.md lists the slices still to come.
 """
 
 __version__ = "0.1.0"

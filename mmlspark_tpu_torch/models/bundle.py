@@ -56,6 +56,16 @@ def register_preprocess(name: str):
     return deco
 
 
+@register_preprocess("imagenet_norm")
+def _imagenet_norm(x):
+    # standard ImageNet channel statistics on 0-255 RGB input
+    mean = torch.tensor([123.675, 116.28, 103.53], dtype=x.dtype,
+                        device=x.device)
+    std = torch.tensor([58.395, 57.12, 57.375], dtype=x.dtype,
+                       device=x.device)
+    return (x - mean) / std
+
+
 @register_preprocess("scale_pm1")
 def _scale_pm1(x):
     # 0-255 -> [-1, 1] (the ViT checkpoint-family convention)

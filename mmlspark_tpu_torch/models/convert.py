@@ -1,4 +1,10 @@
-"""Weight conversion from the JAX package's ViT param tree.
+"""Weight conversion from the JAX package's ViT and ResNet param trees.
+
+``resnet_state_dict_from_flax(params)`` takes the flax ``ResNet`` params
+(``norm="group"``) and returns the ``state_dict`` of
+:class:`mmlspark_tpu_torch.models.resnet.ResNet`: conv kernels HWIO
+become OIHW, the ``Dense`` head ``[in, out]`` becomes ``Linear.weight
+[out, in]``, and GroupNorm ``scale``/``bias`` keep their names.
 
 ``vit_state_dict_from_flax(params)`` takes the flax ``ViT`` params (the
 ``ModelBundle.params`` of ``mmlspark_tpu.models.zoo.ViT_B16``/``ViT_Tiny``)
@@ -60,5 +66,34 @@ def vit_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         _dense(p["mlp_in"], f"{pre}.mlp_in", out)
         _dense(p["mlp_out"], f"{pre}.mlp_out", out)
     _layer_norm(params["ln_f"], "ln_f", out)
+    _dense(params["head"], "head", out)
+    return out
+
+
+def _conv(p: Mapping, prefix: str, out: dict) -> None:
+    # HWIO → OIHW
+    kernel = np.asarray(p["kernel"], np.float32)
+    out[f"{prefix}.weight"] = _t(kernel.transpose(3, 2, 0, 1))
+
+
+def _group_norm(p: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.scale"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def resnet_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ResNet ``state_dict`` (float32 CPU tensors) from the
+    flax params of a ``norm="group"`` ResNet (either ``gn_impl``: the
+    ``gn_*`` names and shapes are the same under both)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["conv_stem"], "conv_stem", out)
+    _group_norm(params["gn_stem"], "gn_stem", out)
+    for name in sorted(k for k in params if k.startswith("stage")):
+        block = params[name]
+        for conv, norm in (("conv1", "gn1"), ("conv2", "gn2"),
+                           ("conv3", "gn3"), ("proj", "gn_proj")):
+            if conv in block:
+                _conv(block[conv], f"blocks.{name}.{conv}", out)
+                _group_norm(block[norm], f"blocks.{name}.{norm}", out)
     _dense(params["head"], "head", out)
     return out

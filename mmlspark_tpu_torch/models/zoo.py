@@ -14,6 +14,12 @@ import torch
 
 from mmlspark_tpu_torch.device import resolve_device
 from mmlspark_tpu_torch.models.bundle import ModelBundle
+from mmlspark_tpu_torch.models.resnet import (
+    ResNet,
+    init_resnet_,
+    resnet18_thin,
+    resnet50,
+)
 from mmlspark_tpu_torch.models.vit import ViT, init_vit_, vit_b16, vit_tiny
 
 ZOO: dict[str, Callable[..., ModelBundle]] = {}
@@ -26,10 +32,14 @@ def register_model(name: str):
     return deco
 
 
-def _seeded(module: ViT, seed: int, device: torch.device) -> ViT:
+def _generator(seed: int, device: torch.device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return init_vit_(module, gen).eval()
+    return gen
+
+
+def _seeded(module: ViT, seed: int, device: torch.device) -> ViT:
+    return init_vit_(module, _generator(seed, device)).eval()
 
 
 @register_model("ViT_B16")
@@ -53,6 +63,36 @@ def vit_tiny_bundle(num_classes: int = 10, input_size: int = 32,
     return ModelBundle(_seeded(module, seed, dev),
                        (input_size, input_size, 3), ViT.OUTPUT_NAMES,
                        preprocess="scale_pm1", name="ViT_Tiny")
+
+
+@register_model("ResNet50")
+def resnet50_bundle(num_classes: int = 1000, input_size: int = 224,
+                    seed: int = 0, device: Any = None,
+                    gn_impl: str = "auto", **kw) -> ModelBundle:
+    """ResNet-50 with GroupNorm(32) at full width (BASELINE config 3
+    backbone, the JAX zoo's training variant), bf16 compute, f32 master
+    weights."""
+    dev = resolve_device(device)
+    module = resnet50(num_classes=num_classes, gn_impl=gn_impl, device=dev,
+                      **kw)
+    init_resnet_(module, _generator(seed, dev))
+    return ModelBundle(module, (input_size, input_size, 3),
+                       ResNet.OUTPUT_NAMES, preprocess="imagenet_norm",
+                       name="ResNet50")
+
+
+@register_model("ResNet_Small")
+def resnet_small_bundle(num_classes: int = 10, input_size: int = 32,
+                        seed: int = 0, device: Any = None,
+                        gn_impl: str = "auto", **kw) -> ModelBundle:
+    """The same ResNet family at test scale (``resnet18_thin``)."""
+    dev = resolve_device(device)
+    module = resnet18_thin(num_classes=num_classes, gn_impl=gn_impl,
+                           device=dev, **kw)
+    init_resnet_(module, _generator(seed, dev))
+    return ModelBundle(module, (input_size, input_size, 3),
+                       ResNet.OUTPUT_NAMES, preprocess="imagenet_norm",
+                       name="ResNet_Small")
 
 
 def get_model(name: str, **kwargs: Any) -> ModelBundle:

@@ -78,6 +78,66 @@ def test_serving_on_cpu_loads_no_jax_module():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_training_on_cpu_loads_no_jax_module():
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from mmlspark_tpu_torch.models.zoo import get_model
+        from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig
+        from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
+        module = get_model("ResNet_Small", device="cpu").module
+        cfg = TrainConfig(batch_size=4, optimizer="momentum", log_every=1,
+                          device="cpu",
+                          preprocess=DevicePreprocess(
+                              src_crop=(36, 36), resize=(32, 32),
+                              flip_lr=True))
+        x = np.zeros((6, 40, 40, 3), np.uint8)
+        trainer = Trainer(module, cfg).fit_arrays(x, np.zeros(6, np.int64))
+        assert len(trainer.history) == 2
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_training_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mmlspark_tpu_torch.models.resnet import resnet18_thin, resnet50
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.ops.group_norm import group_norm
+    from mmlspark_tpu_torch.ops.resize import fused_resize_norm
+    from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig
+
+    for name in ("ResNet50", "ResNet_Small"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_model(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet50()
+    module = get_model("ResNet_Small", device="cpu").module
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(module, TrainConfig())
+    assert Trainer(module, TrainConfig(device="cpu")).device.type == "cpu"
+    # a kernel asked for on CPU tensors raises; the default takes the plain
+    # version only because the tensors lie on the CPU
+    x = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        group_norm(x, torch.ones(8), torch.zeros(8), 4, impl="cuda")
+    img = torch.zeros(1, 8, 8, 3, dtype=torch.uint8)
+    z = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_resize_norm(img, z, z, (6, 6), (4, 4), 1.0, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        resnet18_thin(gn_impl="cuda", device="cpu")(torch.zeros(1, 8, 8, 3))
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

@@ -17,23 +17,40 @@ Phases, each printing JSON lines:
    edge cases (fully masked rows, causal, ragged T=77, D in {32, 128}),
    with its time, the plain version's, one PyTorch library call's and the
    bound;
-3. **group_norm** — the GroupNorm kernel against its plain version at the
+3. **decode_attention** — the decode-attention kernel against its plain
+   version at the generation path's geometry (32 slots, H=12, a 1024-token
+   f32 cache horizon, D=64, on the strided layer slice of the cache and the
+   q view of the fused projection), with valid lengths drawn in 16–320 and
+   one empty slot (exact zeros), and at the edge cases (a mask with holes,
+   the full horizon, D in {32, 128}, a ragged Tk=37), with its time, the
+   plain version's, ``scaled_dot_product_attention``'s and the bound over
+   the valid keys and over the full horizon;
+4. **generate** — a causal TransformerTagger at GPT-2 small's widths
+   (weights from a seed) served through ``ModelServer.add_generator``: a
+   burst of 64 streaming requests (prompts of 16–256 tokens, 64 new tokens
+   each) through ``Client.generate(stream=True)``; the decode-attention
+   kernel launched exactly 12 times per decode step; every stream equal bit
+   for bit to its ``generate_oneshot``; the first decode step's logits
+   through the kernel held against the plain attention on the same
+   prefilled cache; tokens/s, TTFT, ITL, slot occupancy, one decode step's
+   device time, idle share and the kernel's share (``torch.profiler``);
+5. **group_norm** — the GroupNorm kernel against its plain version at the
    12 distinct GroupNorm shapes of ResNet-50 at 224² (N=64, bf16 and f32,
    with and without the fused ReLU as the network uses it) and at the
    edge cases (mean 200 / spread 0.02, C=64 in 32 groups, a ragged H·W,
    N=1); per shape in bf16 its time, the plain version's, ``F.group_norm``'s
    and the bound, and their sums over the 53 sites of one forward;
-4. **resize** — the fused crop → resize → scale kernel against its plain
+6. **resize** — the fused crop → resize → scale kernel against its plain
    version at the training geometry (N=64, 256² source, 240² window,
    224² out, C=3, offsets at 0, at the maximum and out of range) and at
    the edge cases (crop == source, one output row, C=1, a non-square
    window), with its time, the plain version's and the bound;
-5. **serve** — ViT-B/16 at full width (weights from a seed) served through
+7. **serve** — ViT-B/16 at full width (weights from a seed) served through
    ``ModelServer(ServeConfig(buckets=(1, 8, 32)))``: concurrent requests
    of 1–20 uint8 224×224×3 images; every answer held against the same rows
    through the plain-attention path on the card; the kernel's launch count
    over the run must be exactly 12 per forward, warmup included;
-6. **train** — ResNet-50 (GroupNorm) at full width trained through
+8. **train** — ResNet-50 (GroupNorm) at full width trained through
    ``Trainer.fit_arrays`` for 7 steps of 64 rows with on-device
    preprocessing (random 240² window of a 256² uint8 source, bilinear
    resize to 224², flips, ImageNet standardisation): every loss finite,
@@ -42,9 +59,11 @@ Phases, each printing JSON lines:
    through the plain versions, in float32 and in bf16; then one step
    split by CUDA events and traced by ``torch.profiler`` (device busy
    and idle time, the kernels' and the GroupNorm backward's share);
-7. **kernels** — one line listing every ported kernel.
+9. **kernels** — one line listing every ported kernel.
 
-Then the card's name and power limit, and last, when every phase ran, the
+Phases run in the order attention, serve, decode_attention, generate,
+group_norm, resize, train. Then the card's name and power limit, and last,
+when every phase ran, the
 result line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it, as does a machine without CUDA or a directory without the
 package.
@@ -65,7 +84,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-PHASES = ("attention", "serve", "group_norm", "resize", "train")
+PHASES = ("attention", "serve", "decode_attention", "generate",
+          "group_norm", "resize", "train")
+DEV = "cuda"
 
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
 # device memory and operations/s by operand type
@@ -137,6 +158,33 @@ GN_SITES_RESNET50 = 53
 TRAIN_LOSS_TOL = 7e-3
 TRAIN_UPDATE_TOL_F32 = 1e-2
 TRAIN_BF16_RATIO_TOL = 1.5
+
+
+# decode attention: kernel vs plain version, both float32 from the same
+# operands; they differ in the order of the sums over D and over the keys
+# and in expf against torch.exp. Outputs are weighted means of unit-normal
+# values, so 1e-5 is some 100 float32 steps of them
+DECODE_TOL = 1e-5
+DECODE_SLOTS, DECODE_HEADS, DECODE_HORIZON, DECODE_HEAD_DIM = 32, 12, 1024, 64
+DECODE_LENGTHS = (16, 320)
+
+# generation: the repo's causal TransformerTagger at the published widths of
+# GPT-2 small (Radford et al. 2019; the Hugging Face gpt2 config: n_embd
+# 768, n_head 12, n_layer 12, n_inner 3072, vocab_size 50257, n_positions
+# 1024), weights from seed 0. Cut: 64 requests of 64 new tokens each
+GEN_MODEL = dict(vocab_size=50257, embed_dim=768, num_heads=12,
+                 num_layers=12, mlp_dim=3072, num_tags=50257, max_len=1024,
+                 causal=True)
+GEN_CONFIG = dict(slots=32, t_max=1024, prefill_buckets=(64, 256),
+                  prefill_rows=4, max_new_tokens=64, max_queue=256)
+GEN_REQUESTS = 64
+GEN_PROMPT_LENGTHS = (16, 256)
+# the first decode step's logits through the kernel against the plain
+# attention on the same prefilled cache: float32 throughout; the two
+# attentions differ by float32 rounding (DECODE_TOL at most), which 12
+# layers and a 50257-wide head carry to logits of magnitude up to about 6
+# (measured 4.8e-6 apart on an H100)
+GEN_LOGIT_TOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -212,6 +260,23 @@ def resize_bound(n, ch, cw, oh, ow, c) -> tuple[float, str]:
     outs = n * oh * ow * c
     return bound(n * ch * cw * c + 4 * outs + 8 * n,
                  RESIZE_OPS_PER_OUTPUT * outs, "float32")
+
+
+def decode_bound(h, d, lengths, horizon) -> dict:
+    """Decode attention's least time, over the keys these inputs need (the
+    kernel skips key tiles with no valid key) and over the full horizon:
+    K and V rows read once (f32), q read and the f32 output written once,
+    the int8 mask read once, 4·H·D operations a key at the f32 peak."""
+    s_ = len(lengths)
+    fixed = 2 * s_ * h * d * 4 + s_ * horizon
+    valid = int(np.sum(lengths))
+    out = {}
+    for name, keys in (("valid", valid), ("full", s_ * horizon)):
+        ms, by = bound(fixed + 2 * h * d * 4 * keys, 4 * h * d * keys,
+                       "float32")
+        out[name] = {"bound_ms": ms, "bound_us": ms * 1e3, "bound_by": by,
+                     "keys": keys}
+    return out
 
 
 def phase_device() -> dict:
@@ -662,6 +727,267 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
     return launches
 
 
+def _decode_case(s_, h, tk, d, keep_np, gen):
+    """q as the model passes it (a view of the fused qkv projection) and
+    k/v as layer slices of a two-layer slot-major cache."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    ck = torch.randn(s_, 2, h, tk, d, generator=gen, device=DEV)
+    cv = torch.randn(s_, 2, h, tk, d, generator=gen, device=DEV)
+    qkv = torch.randn(s_, 1, 3 * h * d, generator=gen, device=DEV)
+    q = qkv[..., :h * d].reshape(s_, h, d)
+    k, v = ck[:, 1], cv[:, 1]
+    keep = torch.from_numpy(keep_np).to(DEV)
+    got = fa.decode_attention(q, k, v, kv_mask=keep)
+    torch.cuda.synchronize()
+    want = fa.decode_attention(q, k, v, kv_mask=keep, impl="torch")
+    check(got.dtype == torch.float32 and got.shape == want.shape,
+          f"kernel output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    err = float((got - want).abs().max())
+    empty = [i for i in range(s_) if not keep_np[i].any()]
+    for i in empty:
+        check(bool((got[i] == 0).all()), "an empty slot is not exact zeros")
+    row = {"phase": "kernel", "kernel": "decode_attention", "S": s_, "H": h,
+           "Tk": tk, "D": d, "valid_keys": int(keep_np.sum()),
+           "empty_slots": empty, "max_abs_err": err, "tol": DECODE_TOL}
+    return row, (q, k, v, keep)
+
+
+def phase_decode_attention() -> dict:
+    """The decode-attention kernel against its plain version at the
+    generation geometry and the edge cases; times at the geometry."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rng = np.random.default_rng(0)
+    s_, h, tk, d = (DECODE_SLOTS, DECODE_HEADS, DECODE_HORIZON,
+                    DECODE_HEAD_DIM)
+    lengths = rng.integers(DECODE_LENGTHS[0], DECODE_LENGTHS[1] + 1, s_)
+    lengths[s_ // 2] = 0
+    prefix = np.arange(tk)[None, :] < lengths[:, None]
+    holes = rng.random((3, 200)) < 0.3
+    holes[1] = False
+    cases = [(s_, h, tk, d, prefix, True),
+             (s_, h, tk, d, np.ones((s_, tk), bool), False),
+             (3, h, 200, d, holes, False),
+             (4, 4, 300, 128, np.arange(300)[None, :]
+              < np.array([300, 1, 0, 129])[:, None], False),
+             (4, 2, 37, 32, np.arange(37)[None, :]
+              < np.array([37, 17, 0, 33])[:, None], False)]
+    worst = 0.0
+    main = None
+    for cs, ch, ctk, cd, keep_np, timed in cases:
+        row, (q, k, v, keep) = _decode_case(cs, ch, ctk, cd, keep_np, gen)
+        worst = max(worst, row["max_abs_err"])
+        if timed:
+            mask2 = fa.decode_mask2(cs, ctk, keep, q.device)
+            scale = fa.resolve_scale(None, cd)
+            row["ms"] = time_ms(lambda: fa._decode_cuda(q, k, v, mask2,
+                                                        scale))
+            row["plain_ms"] = time_ms(lambda: fa.decode_attention_reference(
+                q, k, v, mask2, scale))
+            # the library call needs a valid key in every row: the empty
+            # slot attends to position 0
+            lib_keep = keep.clone()
+            lib_keep[:, 0] = True
+            lib_mask = lib_keep[:, None, None, :]
+            q4 = q[:, :, None, :]
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q4, k, v, attn_mask=lib_mask, scale=scale))
+            bounds = decode_bound(ch, cd, lengths, ctk)
+            row["bound_valid_keys"] = bounds["valid"]
+            row["bound_full_horizon"] = bounds["full"]
+            row["bound_ms"] = bounds["valid"]["bound_ms"]
+            row["bound_by"] = bounds["valid"]["bound_by"]
+            row["x_bound"] = row["ms"] / row["bound_ms"]
+            row["mean_valid_length"] = float(np.mean(lengths))
+            # every key valid: the kernel against the full-horizon bound
+            full = fa.decode_mask2(cs, ctk, None, q.device)
+            row["ms_full_horizon"] = time_ms(
+                lambda: fa._decode_cuda(q, k, v, full, scale))
+            main = row
+        emit(row)
+        check(row["max_abs_err"] <= DECODE_TOL,
+              f"decode_attention kernel differs from its plain version by "
+              f"{row['max_abs_err']} > {DECODE_TOL} on {row}")
+        del q, k, v, keep
+    return {**main, "max_abs_err": worst}
+
+
+def _gen_prompts() -> list[list[int]]:
+    rng = np.random.default_rng(0)
+    lo, hi = GEN_PROMPT_LENGTHS
+    lengths = rng.integers(lo, hi + 1, GEN_REQUESTS)
+    return [rng.integers(1, GEN_MODEL["vocab_size"], n).tolist()
+            for n in lengths]
+
+
+def _decode_step_figures(model, prompts: list[list[int]]) -> dict:
+    """Prefill ``slots`` prompts into a fresh cache, then one decode step
+    with every slot active: its logits through the kernel against the
+    plain attention on the same cache; its device time by CUDA events and
+    its host wall (median of 20, each ended by a synchronise); and one step
+    under ``torch.profiler``: device busy time, idle share of the wall,
+    and the kernel's device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.serve.generate import build_prefill_step
+    slots, t_max = GEN_CONFIG["slots"], GEN_CONFIG["t_max"]
+    rows = prompts[:slots]
+    shape = (slots, GEN_MODEL["num_layers"], GEN_MODEL["num_heads"], t_max,
+             GEN_MODEL["embed_dim"] // GEN_MODEL["num_heads"])
+    bufs = {"k": torch.zeros(shape, device=DEV),
+            "v": torch.zeros(shape, device=DEV)}
+    width = max(len(p) for p in rows)
+    toks = np.zeros((slots, width), np.int64)
+    am = np.zeros((slots, width), bool)
+    lengths = np.array([len(p) for p in rows], np.int64)
+    for r, p in enumerate(rows):
+        toks[r, :len(p)] = p
+        am[r, :len(p)] = True
+    with torch.no_grad():
+        first = build_prefill_step(model)(bufs, toks, am, lengths,
+                                          np.arange(slots))
+    active = torch.ones(slots, dtype=torch.bool)
+    positions = torch.from_numpy(lengths).to(DEV)
+
+    def plain(q, k, v, keep):
+        return fa.decode_attention(q, k, v, kv_mask=keep, impl="torch")
+
+    def step(fn=None):
+        with torch.no_grad():
+            return model.decode_step(first[:, None], (bufs["k"], bufs["v"]),
+                                     positions, update_mask=active,
+                                     decode_attention_fn=fn)[0]
+
+    logits_kernel = step()
+    logits_plain = step(plain)
+    err = float((logits_kernel - logits_plain).abs().max())
+    out = {"logits_max_abs_err_vs_plain_attention": err,
+           "logit_max_abs": float(logits_plain.abs().max()),
+           "tol": GEN_LOGIT_TOL,
+           "step_ms_events": time_ms(step, reps=20)}
+    walls = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms_wall"] = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in device)
+    k2 = sum(ms for key, ms, _ in device if "decode_fwd_kernel" in key)
+    k2_calls = sum(n for key, _, n in device if "decode_fwd_kernel" in key)
+    check(k2_calls == GEN_MODEL["num_layers"],
+          f"{k2_calls} decode kernels in the profiled step, expected "
+          f"{GEN_MODEL['num_layers']}")
+    out["profile"] = {
+        "device_busy_ms": busy,
+        "device_idle_share_of_wall": 1 - busy / out["step_ms_wall"],
+        "decode_attention_ms": k2,
+        "decode_attention_share_of_busy": k2 / busy,
+        "decode_attention_share_of_wall": k2 / out["step_ms_wall"],
+        "kernels_launched": sum(n for _, _, n in device),
+        "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                        sorted(device, key=lambda d: -d[1])[:8]]}
+    del bufs
+    check(err <= GEN_LOGIT_TOL,
+          f"first decode step through the kernel differs from the plain "
+          f"attention by {err} > {GEN_LOGIT_TOL} on logits")
+    return out
+
+
+def phase_generate(card: str) -> int:
+    """Serve the GPT-2-small-width TransformerTagger through
+    ``ModelServer.add_generator``; returns the decode-attention kernel's
+    launches over the burst."""
+    import torch
+
+    from mmlspark_tpu_torch.models.sequence import (
+        TransformerTagger, init_sequence_,
+    )
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.serve.config import GenerateConfig
+    from mmlspark_tpu_torch.serve.server import Client, ModelServer
+
+    t0 = time.perf_counter()
+    model = init_sequence_(TransformerTagger(device=DEV, **GEN_MODEL),
+                           torch.Generator(device=DEV).manual_seed(0))
+    params = sum(p.numel() for p in model.parameters())
+    prompts = _gen_prompts()
+    new_tokens = GEN_CONFIG["max_new_tokens"]
+    server = ModelServer()
+    try:
+        server.add_generator("lm", model, config=GenerateConfig(**GEN_CONFIG),
+                             device=DEV)
+        setup_s = time.perf_counter() - t0
+        client = Client(server)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: launch counts from 0 just before, read just after
+        fa.decode_launches = 0
+        t_burst = time.perf_counter()
+        streams = [client.generate("lm", p, stream=True) for p in prompts]
+        outs = [list(s) for s in streams]
+        burst_s = time.perf_counter() - t_burst
+        launches = fa.decode_launches
+        snap = server.snapshot()["lm"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == GEN_MODEL["num_layers"] * snap["decode_steps"],
+              f"{launches} decode kernel launches for "
+              f"{snap['decode_steps']} decode steps; expected "
+              f"{GEN_MODEL['num_layers']} per step")
+        check(snap["completed"] == GEN_REQUESTS and snap["failed"] == 0,
+              f"generation stats {snap}")
+        for o in outs:
+            check(len(o) == new_tokens and all(
+                0 <= t < GEN_MODEL["num_tags"] for t in o),
+                f"a stream of {len(o)} tokens, expected {new_tokens} ids")
+        t_ref = time.perf_counter()
+        refs = [server.generate_oneshot("lm", p) for p in prompts]
+        oneshot_s = time.perf_counter() - t_ref
+    finally:
+        server.close()
+    differ = [i for i, (o, r) in enumerate(zip(outs, refs)) if o != r]
+    check(not differ, f"streams {differ} differ from their one-shot decode")
+    figures = _decode_step_figures(model, prompts)
+    tokens = sum(len(o) for o in outs)
+    emit({"phase": "generate", "model": "TransformerTagger, GPT-2 small "
+          "widths", "card": card, "parameters": params,
+          "config": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in GEN_CONFIG.items()},
+          "requests": GEN_REQUESTS, "prompt_lengths": [len(p) for p in
+                                                       prompts],
+          "new_tokens_per_request": new_tokens, "setup_s": setup_s,
+          "burst_wall_s": burst_s, "tokens": tokens,
+          "tokens_per_s": tokens / burst_s,
+          "ttft_ms": snap["ttft_ms"], "itl_ms": snap["itl_ms"],
+          "decode_steps": snap["decode_steps"],
+          "slot_occupancy_mean": snap["slot_occupancy_mean"],
+          "kernel_launches": launches,
+          "launches_per_decode_step": launches / snap["decode_steps"],
+          "streams_equal_oneshot": True, "oneshot_wall_s": oneshot_s,
+          "peak_memory_gb": peak_gb,
+          "decode_step_32_active": figures})
+    return launches
+
+
 def _train_config(impl: str):
     from mmlspark_tpu_torch.train.loop import TrainConfig
     from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
@@ -960,6 +1286,21 @@ def main() -> int:
                 "ms": attn["ms"], "plain_ms": attn["plain_ms"],
                 "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
                 "library_ms": attn["library_ms"]})
+    dec = (phase_decode_attention() if "decode_attention" in phases
+           else None)
+    torch.cuda.empty_cache()
+    if "generate" in phases:
+        launches = phase_generate(card)
+        torch.cuda.empty_cache()
+        if dec:
+            kernels.append({
+                "name": "decode_attention", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/decode_attention.cu",
+                "replaces": "mmlspark_tpu/ops/pallas/attention.py:370",
+                "launches": launches, "max_abs_err": dec["max_abs_err"],
+                "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+                "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+                "library_ms": dec["library_ms"]})
     gn = phase_group_norm() if "group_norm" in phases else None
     rs = phase_resize() if "resize" in phases else None
     torch.cuda.empty_cache()

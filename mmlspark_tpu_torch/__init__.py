@@ -12,7 +12,7 @@ is a CUDA C++ kernel written for Hopper (``ops/csrc``), with its plain
 PyTorch version beside it; a CPU tensor takes the plain version, a CUDA
 tensor the kernel.
 
-Two paths are ported so far:
+Three paths are ported so far:
 
 * serving ViT-B/16 through :class:`ModelServer`: ``ModelServer.add_model``
   → ``DynamicBatcher`` → ``core.plan`` → ``TorchModel`` forward, with
@@ -21,7 +21,12 @@ Two paths are ported so far:
   → ``DeviceLoader`` → one step (``DevicePreprocess`` with
   ``ops.resize.fused_resize_norm``, the forward with
   ``ops.group_norm.group_norm`` at every norm site, a masked loss, the
-  backward and the optimizer), both ops hand-written CUDA kernels.
+  backward and the optimizer), both ops hand-written CUDA kernels;
+* token generation through :class:`ModelServer`:
+  ``ModelServer.add_generator`` → ``GenerateBatcher`` (continuous batching
+  over a slot-major KV cache) → the causal ``TransformerTagger``, whose
+  decode step attends through ``ops.attention.decode_attention``, a
+  hand-written CUDA kernel.
 
 ROADMAP.md lists the slices still to come.
 """

@@ -22,12 +22,22 @@ code runs synchronously (no pinning, no events).
 Fusing runs of several device stages into one program, as the JAX plan
 does, is not part of this slice: only the trailing stage of a list runs on
 the device, every stage before it runs on the host.
+
+Stateful segments (the port of the JAX plan's ``SegmentState``,
+``allocate_segment_state`` and ``StatefulSegment``) hold device state
+across dispatches: the token-generation engine's KV cache. The buffers
+are allocated zeroed once, owned by one :class:`SegmentState`, and every
+dispatch mutates them in place under its lock (the JAX plan donates them
+to each jitted step instead). A :class:`StatefulSegment` records the
+distinct input shapes it has run: eager PyTorch compiles nothing, so that
+set stands in for the JAX engine's compiled-program budget.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import deque
-from typing import Callable, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -168,3 +178,66 @@ def transform_async(stages: list, table: DataTable) -> PendingTable:
     if isinstance(last, DeviceStage) and len(table):
         return dispatch(last, table)
     return PendingTable(table=last.transform(table))
+
+
+# ---- stateful segments (device state across dispatches) ----
+
+class SegmentState:
+    """Device buffers owned by a stateful segment (for the serve plane,
+    the slot-major KV-cache pair ``[slots, layers, heads, T_max, d]``).
+    Every mutation runs under :meth:`locked`, so a dispatch and a reader
+    never interleave."""
+
+    __slots__ = ("name", "buffers", "_lock")
+
+    def __init__(self, name: str, buffers: dict[str, torch.Tensor]):
+        self.name = name
+        self.buffers = buffers
+        self._lock = threading.Lock()
+
+    def locked(self, fn: Callable[[dict], Any]) -> Any:
+        """Run ``fn(buffers)`` under the lock; ``fn`` may update the
+        buffers in place. Returns what ``fn`` returns."""
+        with self._lock:
+            return fn(self.buffers)
+
+
+def allocate_segment_state(name: str, shapes: dict, device: Any,
+                           dtype: torch.dtype = torch.float32
+                           ) -> SegmentState:
+    """Zeroed buffers on ``device``, one per ``name → shape`` entry. Zero
+    is the right start for a KV cache: the active-slot mask keeps unwritten
+    positions out of every attention denominator."""
+    bufs = {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k, shape in shapes.items()}
+    return SegmentState(name, bufs)
+
+
+class StatefulSegment:
+    """A step function over :class:`SegmentState`.
+
+    ``step_fn(buffers, *args) -> out`` updates the buffers in place and
+    returns its outputs (device tensors: the caller owns the fetch).
+    :meth:`dispatch` runs it on the owned state under the state's lock;
+    :meth:`run` on buffers the caller passes (fresh ones, for a reference
+    run). Both record the shapes of ``args``: :attr:`shapes` is the set of
+    distinct input shapes the step has seen."""
+
+    __slots__ = ("name", "step_fn", "state", "shapes", "_shape_lock")
+
+    def __init__(self, name: str, step_fn: Callable, state: SegmentState):
+        self.name = name
+        self.step_fn = step_fn
+        self.state = state
+        self.shapes: set = set()
+        self._shape_lock = threading.Lock()
+
+    def run(self, buffers: dict, *args) -> Any:
+        with self._shape_lock:
+            self.shapes.add(tuple(tuple(np.shape(a)) for a in args))
+        with torch.no_grad():
+            return self.step_fn(buffers, *args)
+
+    def dispatch(self, *args) -> Any:
+        """One step on the owned state, serialised under its lock."""
+        return self.state.locked(lambda bufs: self.run(bufs, *args))

@@ -1,4 +1,5 @@
-"""Weight conversion from the JAX package's ViT and ResNet param trees.
+"""Weight conversion from the JAX package's ViT, ResNet and
+TransformerTagger param trees.
 
 ``resnet_state_dict_from_flax(params)`` takes the flax ``ResNet`` params
 (``norm="group"``) and returns the ``state_dict`` of
@@ -19,6 +20,13 @@ as nested dicts of numpy arrays and returns the ``state_dict`` of
   ``[H·dh, D]`` before the transpose;
 * the patch conv kernel HWIO becomes OIHW;
 * LayerNorm ``scale``/``bias`` become ``weight``/``bias``.
+
+``sequence_state_dict_from_flax(params)`` takes the flax
+``TransformerTagger`` params (``embed/embedding``, ``pos_embed``, per layer
+``ln_a{i}``, ``qkv{i}``, ``proj{i}``, ``ln_b{i}``, ``mlp_in{i}``,
+``mlp_out{i}``, then ``ln_f`` and ``head``) and returns the ``state_dict``
+of :class:`mmlspark_tpu_torch.models.sequence.TransformerTagger`, whose
+layer ``i`` lives under ``blocks.{i}``.
 """
 
 from __future__ import annotations
@@ -95,5 +103,26 @@ def resnet_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             if conv in block:
                 _conv(block[conv], f"blocks.{name}.{conv}", out)
                 _group_norm(block[norm], f"blocks.{name}.{norm}", out)
+    _dense(params["head"], "head", out)
+    return out
+
+
+_SEQUENCE_LAYER = {"ln_a": _layer_norm, "qkv": _dense, "proj": _dense,
+                   "ln_b": _layer_norm, "mlp_in": _dense, "mlp_out": _dense}
+
+
+def sequence_state_dict_from_flax(params: Mapping
+                                  ) -> dict[str, torch.Tensor]:
+    """The port's TransformerTagger ``state_dict`` (float32 CPU tensors)
+    from the flax params of the dense (non-MoE) model."""
+    out: dict[str, torch.Tensor] = {
+        "embed.weight": _t(params["embed"]["embedding"]),
+        "pos_embed": _t(params["pos_embed"]),
+    }
+    layers = sum(1 for k in params if k.startswith("qkv"))
+    for i in range(layers):
+        for name, convert in _SEQUENCE_LAYER.items():
+            convert(params[f"{name}{i}"], f"blocks.{i}.{name}", out)
+    _layer_norm(params["ln_f"], "ln_f", out)
     _dense(params["head"], "head", out)
     return out

@@ -1,4 +1,5 @@
-"""Flash attention: the hand-written CUDA kernel and its plain PyTorch version.
+"""Flash and decode attention: the hand-written CUDA kernels and their plain
+PyTorch versions.
 
 The port of ``mmlspark_tpu/ops/pallas/attention.py:flash_attention`` (the
 Pallas kernel ``_flash_call``), the serving-path attention of the ViT.
@@ -27,6 +28,19 @@ wrapper raises on any other ``D``, on another dtype, on operands on
 different devices, and on operands whose last axis is not contiguous (the
 kernel takes batch/head/token strides, so the ``[B,T,H,D] → [B,H,T,D]``
 transpose of the projections needs no copy).
+
+Decode attention is the port of
+``mmlspark_tpu/ops/pallas/attention.py:decode_attention`` (the Pallas kernel
+``_decode_call``), the token-generation path's attention: one query row
+per slot, q ``[S, H, D]``, against the slot-major f32 KV cache k/v
+``[S, H, Tk, D]``, with one ``[S, Tk]`` int8 keep-mask shared by every
+head (:func:`decode_mask2`). :func:`decode_attention_reference` is its
+plain version (the same recurrence over key blocks, both contractions as
+multiply + sum, as ``_decode_tile`` writes them); :func:`decode_attention`
+dispatches on ``impl`` like :func:`flash_attention`; ``decode_launches``
+counts the launches of ``ops/csrc/decode_attention.cu``. The kernel takes
+float32 operands and ``D <= 128`` with ``D % 8 == 0``; the wrapper raises
+on anything else, whichever route is taken.
 """
 
 from __future__ import annotations
@@ -49,8 +63,9 @@ _DENOM_FLOOR = 1e-30
 MAX_D = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the CUDA kernel; reset by whoever reads it
+# launches of the CUDA kernels; reset by whoever reads them
 launches = 0
+decode_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -223,3 +238,145 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False,
     if route == "cuda":
         return _flash_cuda(q, k, v, keep, s)
     return flash_attention_reference(q, k, v, keep, s, block_k)
+
+
+# ---- the KV-cache decode variant (one query row per slot) ----
+
+
+def decode_mask2(s: int, tk: int, kv_mask, device) -> torch.Tensor:
+    """The one ``[S, Tk]`` int8 validity mask every decode implementation
+    consumes (nonzero = attend), contiguous. An int8 mask passes through
+    unconverted, so a caller that attends many times against one mask
+    converts it once."""
+    if kv_mask is None:
+        return torch.ones((s, tk), dtype=torch.int8, device=device)
+    keep = torch.as_tensor(kv_mask, device=device)
+    if tuple(keep.shape) != (s, tk):
+        raise ValueError(
+            f"kv_mask must be [S, Tk] = {(s, tk)}, got {tuple(keep.shape)}")
+    if keep.dtype != torch.int8:
+        keep = keep.to(torch.bool).to(torch.int8)
+    return keep.contiguous()
+
+
+def decode_attention_reference(q, k, v, mask2, scale,
+                               block_k: int = DEFAULT_BLOCK_K):
+    """Plain PyTorch decode attention: the block loop of ``_decode_tile``
+    over (slot, head) at once, both contractions as broadcast-multiply +
+    sum. ``q`` ``[S, H, D]``, ``k``/``v`` ``[S, H, Tk, D]``, ``mask2``
+    ``[S, Tk]`` int8 (nonzero = attend). Returns ``[S, H, D]`` float32;
+    a fully masked slot is exact zeros."""
+    q = q.float()
+    k = k.float()
+    v = v.float()
+    keep = (mask2 != 0)[:, None, :]                   # [S, 1, Tk]
+    s_, h, d = q.shape
+    tk = k.shape[2]
+    dev = q.device
+    neg_inf = float("-inf")
+    m = torch.full((s_, h, 1), neg_inf, dtype=torch.float32,
+                   device=dev)
+    denom = torch.zeros((s_, h, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((s_, h, d), dtype=torch.float32, device=dev)
+    sc = float(np.float32(scale))
+    for start in range(0, tk, block_k):
+        stop = min(start + block_k, tk)
+        ks, vs = k[:, :, start:stop], v[:, :, start:stop]
+        scores = (q[:, :, None, :] * ks).sum(dim=-1) * sc   # [S, H, bk]
+        scores = torch.where(keep[..., start:stop], scores, neg_inf)
+        blk_max = scores.amax(dim=-1, keepdim=True)
+        m_new = torch.maximum(m, blk_max)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+        p = torch.exp(torch.where(torch.isfinite(scores), scores - m_new,
+                                  neg_inf))
+        acc = acc * corr + (p[..., None] * vs).sum(dim=-2)
+        denom = denom * corr + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return acc / torch.clamp(denom, min=_DENOM_FLOOR)
+
+
+def _check_decode_operands(q, k, v) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"q must be [S, H, D], got {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"{name} has dtype {t.dtype}; decode_attention takes the "
+                "float32 cache and a float32 query")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    s_, h, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[:2] != (s_, h) \
+            or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d > MAX_D or d % 8:
+        raise ValueError(
+            f"head width D={d} unsupported: the kernel takes D <= {MAX_D} "
+            "with D a multiple of 8")
+
+
+def _decode_kernel_fn():
+    """The C entry point of ``ops/csrc/decode_attention.cu``, built on
+    first use, every argument typed."""
+    from mmlspark_tpu_torch.ops import _build
+    fn = _build.load("decode_attention").decode_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _decode_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
+    """Launch the decode kernel on the current stream; the output is
+    allocated here, the kernel allocates nothing."""
+    global decode_launches
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"{name} must have a contiguous last axis (the kernel takes "
+                f"the other strides); got strides {t.stride()}")
+    # K rows are read 16 bytes at a time
+    if k.data_ptr() % 16 or any(st % 4 for st in k.stride()[:3]):
+        raise ValueError(
+            f"k rows must be 16-byte aligned: data_ptr {k.data_ptr()}, "
+            f"strides {k.stride()}")
+    s_, h, d = q.shape
+    tk = k.shape[2]
+    fn = _decode_kernel_fn()
+    out = torch.empty((s_, h, d), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with _count_lock:
+            decode_launches += 1
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(),
+                 out.data_ptr(), s_, h, tk, d, *q.stride()[:2],
+                 *k.stride()[:3], *v.stride()[:3], scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"decode_attention kernel launch failed: cudaError {err} "
+            f"(S={s_}, H={h}, Tk={tk}, D={d})")
+    return out
+
+
+def decode_attention(q, k, v, kv_mask=None, scale=None, impl: str = "auto",
+                     block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Single-token decode attention against the cached K/V.
+
+    ``q`` ``[S, H, D]`` (one query per slot), ``k``/``v`` ``[S, H, Tk, D]``
+    (the slot-major cache, one layer's slice), ``kv_mask`` ``[S, Tk]``
+    bool (True = valid cached position; typically ``arange(Tk) <=
+    position``). Returns ``[S, H, D]`` float32; fully masked slots are
+    exact zeros. ``block_k`` is the plain version's key-block width; the
+    kernel walks keys in tiles of 32."""
+    _check_decode_operands(q, k, v)
+    route = resolve_impl(impl, q)
+    s_, h, d = q.shape
+    tk = k.shape[2]
+    keep = decode_mask2(s_, tk, kv_mask, q.device)
+    sc = resolve_scale(scale, d)
+    if route == "cuda":
+        return _decode_cuda(q, k, v, keep, sc)
+    return decode_attention_reference(q, k, v, keep, sc, block_k)

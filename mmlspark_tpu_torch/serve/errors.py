@@ -9,20 +9,28 @@ from __future__ import annotations
 
 
 class ServeError(Exception):
-    """Base of every serving-layer error."""
+    """Base of every serving-layer error.
+
+    ``retry_after_s`` is the server's backpressure hint: ``None`` means it
+    offered none. The backpressure errors (:class:`Overloaded`,
+    :class:`ServerClosed`) carry it from the rejecting engine's config."""
+
+    retry_after_s: float | None = None
 
 
 class Overloaded(ServeError):
     """Admission rejected: the model's request queue is full.
     Backpressure, not failure — retry with backoff or shed load."""
 
-    def __init__(self, model: str, queued: int, max_queue: int):
+    def __init__(self, model: str, queued: int, max_queue: int,
+                 retry_after_s: float | None = None):
         super().__init__(
             f"model {model!r} overloaded: {queued} requests queued "
             f"(max_queue={max_queue})")
         self.model = model
         self.queued = queued
         self.max_queue = max_queue
+        self.retry_after_s = retry_after_s
 
 
 class DeadlineExceeded(ServeError):
@@ -57,6 +65,11 @@ class ModelNotFound(ServeError):
 class ServerClosed(ServeError):
     """Submission after shutdown began (new work is rejected during
     drain)."""
+
+    def __init__(self, message: str = "server is closed",
+                 retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
 
 
 class ModelLoadError(ServeError):

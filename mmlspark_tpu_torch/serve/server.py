@@ -7,6 +7,12 @@ A served model is a :class:`~mmlspark_tpu_torch.models.torch_model.TorchModel`
 a ``TorchModel`` reading column ``"input"`` and writing ``"scores"``. Every
 load warms the whole bucket ladder through the same dispatch path requests
 take, before the first request is routed to the model.
+
+A generator (:meth:`ModelServer.add_generator`) is a causal
+``TransformerTagger`` served token by token through a
+:class:`~mmlspark_tpu_torch.serve.generate.GenerateBatcher`. Batch models
+and generators share one namespace: one name, one servable. The JAX
+server's SLO tracker and journal are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -21,10 +27,11 @@ from mmlspark_tpu_torch.data.table import DataTable
 from mmlspark_tpu_torch.models.bundle import ModelBundle
 from mmlspark_tpu_torch.models.torch_model import TorchModel
 from mmlspark_tpu_torch.serve.batcher import DynamicBatcher, ServeRequest
-from mmlspark_tpu_torch.serve.config import ServeConfig
+from mmlspark_tpu_torch.serve.config import GenerateConfig, ServeConfig
 from mmlspark_tpu_torch.serve.errors import (
-    BadRequest, ModelNotFound, ServerClosed,
+    BadRequest, ModelLoadError, ModelNotFound, ServerClosed,
 )
+from mmlspark_tpu_torch.serve.generate import GenerateBatcher, TokenStream
 from mmlspark_tpu_torch.serve.stats import ServerStats
 
 _log = get_logger(__name__)
@@ -63,6 +70,7 @@ class ModelServer:
     def __init__(self, config: ServeConfig | None = None):
         self.config = config or ServeConfig()
         self._models: dict[str, DynamicBatcher] = {}
+        self._generators: dict[str, GenerateBatcher] = {}
         self._lock = threading.Lock()
         self._closed = False
 
@@ -94,13 +102,19 @@ class ModelServer:
             batcher.close(drain=False)
             raise
         with self._lock:
-            closed = self._closed
-            old = None if closed else self._models.get(name)
-            if not closed:
+            reject = None
+            if self._closed:
+                reject = ServerClosed("server is closed")
+            elif name in self._generators:
+                reject = ModelLoadError(name, message=(
+                    f"{name!r} already serves a generator — one name, one "
+                    "servable"))
+            old = None if reject else self._models.get(name)
+            if reject is None:
                 self._models[name] = batcher
-        if closed:
+        if reject is not None:
             batcher.close(drain=False)
-            raise ServerClosed("server is closed")
+            raise reject
         if old is not None:
             old.close(drain=True)
         _log.info("serve[%s]: loaded (buckets=%s)", name,
@@ -143,6 +157,70 @@ class ModelServer:
         """Blocking submit + wait."""
         return self.submit(name, table, deadline_ms).result(timeout)
 
+    # -- autoregressive token serving (serve/generate.py) --
+
+    def add_generator(self, name: str, model: Any, state_dict: Any = None,
+                      config: GenerateConfig | None = None,
+                      decode_attention_fn: Any = None,
+                      device: Any = None) -> None:
+        """Register a token-serving engine under ``name``: a causal
+        :class:`~mmlspark_tpu_torch.models.sequence.TransformerTagger`
+        (with ``state_dict`` loaded into it, when given) served through
+        continuous batching with the KV cache as plan-managed device
+        state. Runs on ``device`` (None = cuda, which raises without a
+        card; ``"cpu"`` when asked). Re-registering a generator's name
+        swaps it in: the old engine drains first."""
+        cfg = config or GenerateConfig()
+        engine = GenerateBatcher(name, model, state_dict, config=cfg,
+                                 decode_attention_fn=decode_attention_fn,
+                                 device=device)
+        reject = None
+        old = None
+        with self._lock:
+            if self._closed:
+                reject = ServerClosed("server is closed")
+            elif name in self._models:
+                reject = ModelLoadError(name, message=(
+                    f"{name!r} already serves a batch model — one name, "
+                    "one servable"))
+            else:
+                old = self._generators.get(name)
+                self._generators[name] = engine
+        if reject is not None:
+            engine.close(drain=False)
+            raise reject
+        if old is not None:
+            old.close(drain=True)
+        _log.info("serve[%s]: generator loaded (slots=%d, "
+                  "prefill_buckets=%s, t_max=%d)", name, cfg.slots,
+                  cfg.prefill_buckets, cfg.t_max)
+
+    def _generator(self, name: str) -> GenerateBatcher:
+        with self._lock:
+            engine = self._generators.get(name)
+            if engine is None:
+                raise ModelNotFound(name, list(self._generators))
+            return engine
+
+    def generate(self, name: str, prompt: Any,
+                 max_new_tokens: int | None = None) -> TokenStream:
+        """Admit a generation request on generator ``name``; returns the
+        :class:`~mmlspark_tpu_torch.serve.generate.TokenStream`."""
+        return self._generator(name).submit(prompt,
+                                            max_new_tokens=max_new_tokens)
+
+    def generate_oneshot(self, name: str, prompt: Any,
+                         max_new_tokens: int | None = None) -> list[int]:
+        """Whole-sequence reference decode of one prompt through generator
+        ``name``'s own steps on fresh buffers (engine state untouched): the
+        bit-identity anchor of every continuously batched stream."""
+        return self._generator(name).oneshot(prompt,
+                                             max_new_tokens=max_new_tokens)
+
+    def generators(self) -> list[str]:
+        with self._lock:
+            return sorted(self._generators)
+
     # -- introspection --
 
     def models(self) -> list[str]:
@@ -153,9 +231,9 @@ class ModelServer:
         return self._batcher(name).stats
 
     def snapshot(self) -> dict:
-        """All models' stats in one JSON-safe dict."""
+        """All models' and generators' stats in one JSON-safe dict."""
         with self._lock:
-            batchers = dict(self._models)
+            batchers = {**self._models, **self._generators}
         out = {}
         for name, b in batchers.items():
             snap = b.stats.snapshot()
@@ -166,11 +244,12 @@ class ModelServer:
     # -- lifecycle --
 
     def close(self, drain: bool = True) -> None:
-        """Shut down every model's batcher; ``drain=True`` answers all
-        admitted requests first. No thread survives."""
+        """Shut down every model's batcher and every generator;
+        ``drain=True`` answers all admitted requests and streams first. No
+        thread survives."""
         with self._lock:
             self._closed = True
-            batchers = list(self._models.values())
+            batchers = [*self._models.values(), *self._generators.values()]
         for b in batchers:
             b.close(drain=drain)
 
@@ -195,3 +274,12 @@ class Client:
     def predict_async(self, model: str, rows: DataTable,
                       deadline_ms: float | None = None) -> ServeRequest:
         return self.server.submit(model, rows, deadline_ms)
+
+    def generate(self, model: str, prompt, max_new_tokens: int | None = None,
+                 stream: bool = False, timeout: float | None = None):
+        """Token generation on a registered generator. ``stream=True``
+        returns the :class:`~mmlspark_tpu_torch.serve.generate.TokenStream`
+        (iterate for tokens as they decode); the default blocks for the
+        full token list."""
+        handle = self.server.generate(model, list(prompt), max_new_tokens)
+        return handle if stream else handle.result(timeout)

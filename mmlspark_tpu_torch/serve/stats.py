@@ -30,7 +30,8 @@ class ServerStats:
 
     COUNTERS = ("admitted", "completed", "rejected_overload",
                 "expired_deadline", "timed_out", "failed", "batches",
-                "rows_dispatched", "rows_padded")
+                "rows_dispatched", "rows_padded", "tokens_out",
+                "generate_requests", "decode_steps")
 
     def __init__(self, window: int = 4096, model: str = ""):
         self.model = model
@@ -42,6 +43,14 @@ class ServerStats:
         self._device_ms: deque = deque(maxlen=window)
         self._occupancy: deque = deque(maxlen=window)
         self._bucket_batches: dict[int, int] = {}
+        # token serving (serve/generate.py): TTFT is prefill completion
+        # minus submit (per request), ITL the gap between consecutive
+        # streamed tokens (per token); slot occupancy is observed once per
+        # decode step (active slots / slots)
+        self._ttft_ms: deque = deque(maxlen=window)
+        self._itl_ms: deque = deque(maxlen=window)
+        self._slot_occupancy: deque = deque(maxlen=window)
+        self._prompt_tokens: deque = deque(maxlen=window)
         # distinct batch shapes that entered the device
         self.dispatch_shapes: set = set()
 
@@ -78,6 +87,42 @@ class ServerStats:
             self._e2e_ms.append(e2e_ms)
             self._queue_ms.append(queue_ms)
 
+    # -- token-serving side (serve/generate.py) --
+
+    def record_generate_admitted(self, prompt_tokens: int) -> None:
+        with self._lock:
+            self._counts["generate_requests"] += 1
+            self._prompt_tokens.append(prompt_tokens)
+
+    def record_ttft(self, ms: float) -> None:
+        with self._lock:
+            self._ttft_ms.append(ms)
+
+    def record_itl(self, ms: float) -> None:
+        with self._lock:
+            self._itl_ms.append(ms)
+
+    def record_tokens(self, n: int = 1) -> None:
+        self._add("tokens_out", n)
+
+    def record_decode_step(self, active: int, slots: int) -> None:
+        with self._lock:
+            self._counts["decode_steps"] += 1
+            self._slot_occupancy.append(active / slots if slots else 0.0)
+
+    def ttft_percentiles(self) -> dict | None:
+        with self._lock:
+            return _percentiles(list(self._ttft_ms))
+
+    def itl_percentiles(self) -> dict | None:
+        with self._lock:
+            return _percentiles(list(self._itl_ms))
+
+    def slot_occupancy_mean(self) -> float | None:
+        with self._lock:
+            occ = list(self._slot_occupancy)
+        return float(np.mean(occ)) if occ else None
+
     # -- batch side --
 
     def record_batch(self, bucket: int, occupancy: int, device_ms: float,
@@ -100,6 +145,9 @@ class ServerStats:
             occupancy = list(self._occupancy)
             e2e, queue = list(self._e2e_ms), list(self._queue_ms)
             device = list(self._device_ms)
+            ttft, itl = list(self._ttft_ms), list(self._itl_ms)
+            slot_occ = list(self._slot_occupancy)
+            prompts = list(self._prompt_tokens)
             out["occupancy_by_bucket"] = dict(
                 sorted(self._bucket_batches.items()))
             out["distinct_batch_shapes"] = len(self.dispatch_shapes)
@@ -108,4 +156,11 @@ class ServerStats:
         out["e2e_ms"] = _percentiles(e2e)
         out["queue_wait_ms"] = _percentiles(queue)
         out["device_ms"] = _percentiles(device)
+        # token-serving view (zero/None for pure batch models)
+        out["ttft_ms"] = _percentiles(ttft)
+        out["itl_ms"] = _percentiles(itl)
+        out["slot_occupancy_mean"] = (float(np.mean(slot_occ))
+                                      if slot_occ else None)
+        out["prompt_tokens_mean"] = (float(np.mean(prompts))
+                                     if prompts else None)
         return out

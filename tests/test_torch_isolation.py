@@ -107,6 +107,58 @@ def test_training_on_cpu_loads_no_jax_module():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_generation_on_cpu_loads_no_jax_module():
+    script = textwrap.dedent("""
+        import sys
+        import torch
+        from mmlspark_tpu_torch.models.sequence import (
+            TransformerTagger, init_sequence_)
+        from mmlspark_tpu_torch.serve.config import GenerateConfig
+        from mmlspark_tpu_torch.serve.server import Client, ModelServer
+        model = TransformerTagger(vocab_size=50, embed_dim=16, num_heads=2,
+                                  num_layers=1, mlp_dim=32, num_tags=50,
+                                  max_len=32, causal=True, device="cpu")
+        init_sequence_(model, torch.Generator().manual_seed(0))
+        cfg = GenerateConfig(slots=2, t_max=16, prefill_buckets=(4, 8),
+                             prefill_rows=2, max_new_tokens=3)
+        with ModelServer() as server:
+            server.add_generator("lm", model, config=cfg, device="cpu")
+            out = Client(server).generate("lm", [1, 2, 3])
+            assert out == server.generate_oneshot("lm", [1, 2, 3])
+        assert len(out) == 3
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_generation_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mmlspark_tpu_torch.models.sequence import TransformerTagger
+    from mmlspark_tpu_torch.ops.attention import decode_attention
+    from mmlspark_tpu_torch.serve.server import ModelServer
+
+    model = TransformerTagger(vocab_size=50, embed_dim=16, num_heads=2,
+                              num_layers=1, mlp_dim=32, num_tags=50,
+                              max_len=128, causal=True, device="cpu")
+    with ModelServer() as server:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            server.add_generator("lm", model)
+        assert server.generators() == []
+    q = torch.zeros(2, 2, 8)
+    kv = torch.zeros(2, 2, 4, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        decode_attention(q, kv, kv, impl="cuda")
+
+
 def test_training_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

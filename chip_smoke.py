@@ -59,12 +59,34 @@ Phases, each printing JSON lines:
    through the plain versions, in float32 and in bf16; then one step
    split by CUDA events and traced by ``torch.profiler`` (device busy
    and idle time, the kernels' and the GroupNorm backward's share);
-9. **kernels** — one line listing every ported kernel.
+9. **block_update** — the ring-hop block-update kernel against its plain
+   version at every hop of a ring over the sequence-parallel training
+   geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the first
+   training batch's pad mask, causal, each hop's carry from the real
+   previous hop), on the same block with every key kept, and at the edge
+   cases (a pad-only block on a real carry, which must leave it unchanged
+   bit for bit, and on the initial carry, which must stay (-inf, 0, 0);
+   the causal diagonal block, pad holes, D in {128, 32}, a ragged
+   37 × 200), with its time, the plain version's, the bound over the
+   (query, key) pairs the mask keeps, over the 64 × 64 tiles the kernel
+   works through and over every key, and SDPA's time over the same block
+   without the carry (for reference);
+10. **sp_train** — the causal TransformerTagger at GPT-2 small's widths
+    (weights from a seed, pad token 0) trained through
+    ``Trainer.fit_arrays`` with ``mesh_spec={"sp": 4}`` for 5 steps of 8
+    next-token sequences of 512–1024 tokens: every loss finite, the
+    block-update kernel launched 48 times a step (12 layers × 4 hops; the
+    backward launches none); on the first batch the ring's logits held
+    against the unsharded forward, and the loss and gradients through the
+    kernel against the plain block update; real tokens/s, step time, peak
+    memory, and one step under ``torch.profiler`` (device busy and idle,
+    the kernel's forward and the plain backward's share);
+11. **kernels** — one line listing every ported kernel.
 
 Phases run in the order attention, serve, decode_attention, generate,
-group_norm, resize, train. Then the card's name and power limit, and last,
-when every phase ran, the
-result line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+group_norm, resize, train, block_update, sp_train. Then the card's name
+and power limit, and last, when every phase ran, the result line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it, as does a machine without CUDA or a directory without the
 package.
 """
@@ -85,7 +107,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("attention", "serve", "decode_attention", "generate",
-          "group_norm", "resize", "train")
+          "group_norm", "resize", "train", "block_update", "sp_train")
 DEV = "cuda"
 
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
@@ -185,6 +207,37 @@ GEN_PROMPT_LENGTHS = (16, 256)
 # layers and a 50257-wide head carry to logits of magnitude up to about 6
 # (measured 4.8e-6 apart on an H100)
 GEN_LOGIT_TOL = 1e-4
+
+# the ring-hop block update (K3): kernel vs plain version, float32 from the
+# same operands. The kernel merges 64-key stripes one after another where
+# the plain version takes the whole block in one softmax, and sums the dot
+# products in another order: m and acc/denom differ by float32 rounding,
+# some 10 steps of values of order 1; 1e-5 is about 100 such steps
+BLOCK_TOL = 1e-5
+# sequence-parallel training: the generation path's model (GPT-2 small's
+# widths, GEN_MODEL) with pad token 0, trained through Trainer.fit_arrays on
+# a mesh of SP_RANKS virtual ranks (ring attention, K3 at every hop of every
+# layer). Data: SP_ROWS next-token sequences of n+1 tokens, n uniform in
+# SP_LENGTHS, right-padded with 0 to max_len; batch SP_BATCH, one epoch
+SP_MODEL = dict(GEN_MODEL, pad_token_id=0)
+SP_RANKS, SP_BATCH, SP_ROWS, SP_LENGTHS = 4, 8, 40, (512, 1024)
+# ring logits through K3 against the same model's unsharded forward (plain
+# attention over the whole sequence): float32 throughout; K3 and the
+# softmax differ by rounding (BLOCK_TOL at most), which 12 layers and the
+# 50257-wide head carry to logits of magnitude up to about 6
+SP_LOGIT_TOL = 1e-4
+# the first step through K3 against the plain block update on the card,
+# same weights and batch: the loss (about ln 50257 = 10.8) within 1e-5 of
+# itself, and the gradient: the norm of the difference over the norm of
+# the plain route's gradient, over all parameters and in the tensor where
+# it is largest (so that a fault confined to the attention weights cannot
+# hide behind the head's gradient). Both routes run the same backward (the
+# plain update recomputed), at forward values that differ by rounding; a
+# wrong mask or hop moves the gradient by order 1
+# (measured on an H100: loss gap 0, gradient gap 1.3e-6 over all
+# parameters, 1.8e-6 in the worst tensor)
+SP_LOSS_TOL = 1e-4
+SP_GRAD_TOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -1248,6 +1301,489 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
           f"{TRAIN_BF16_RATIO_TOL}x")
     return launches
 
+def block_update_bound(n, h, tq, tk, d, keep=None) -> tuple[float, str]:
+    """The block update on these operands: q, k and v read once, the carry
+    (m, denom [N,H,Tq,1] and acc [N,H,Tq,D], f32) read and written once,
+    the int8 mask read once, 4·N·H·Tq·Tk·D float32 operations. With
+    ``keep`` (the ``[N, Tq, Tk]`` mask of this run) only the work the
+    function needs is counted: 4·H·D operations per kept (query, key) pair,
+    the q rows that keep some key and the K/V rows of the keys that some
+    query keeps."""
+    fixed = n * tq * tk + 2 * 4 * n * h * tq * (d + 2)
+    if keep is None:
+        return bound(fixed + 4 * n * h * (tq + 2 * tk) * d,
+                     4 * n * h * tq * tk * d, "float32")
+    kept = keep != 0
+    pairs = int(kept.sum())
+    q_rows = int(kept.any(dim=2).sum())
+    kv_rows = int(kept.any(dim=1).sum())
+    return bound(fixed + 4 * h * d * (q_rows + 2 * kv_rows),
+                 4 * h * d * pairs, "float32")
+
+
+def kernel_tile_keep(keep):
+    """``keep`` widened to whole (64-row tile, 64-key stripe) pairs: the
+    work K3 does, since it skips only the pairs that keep no key. Its bound
+    is the kernel's own skip-level work, not the function's."""
+    import torch
+    n, tq, tk = keep.shape
+    t64, s64 = -(-tq // 64), -(-tk // 64)
+    pad = torch.zeros((n, t64 * 64, s64 * 64), dtype=torch.bool,
+                      device=keep.device)
+    pad[:, :tq, :tk] = keep != 0
+    kept = pad.reshape(n, t64, 64, s64, 64).any(dim=4).any(dim=2)
+    wide = kept.repeat_interleave(64, dim=1).repeat_interleave(64, dim=2)
+    return wide[:, :tq, :tk]
+
+
+def _sp_data() -> tuple[np.ndarray, np.ndarray]:
+    """SP_ROWS next-token sequences from numpy seed 0: n+1 tokens in
+    [1, vocab) with n uniform in SP_LENGTHS; x the first n, y the last n,
+    both right-padded with 0 to max_len."""
+    rng = np.random.default_rng(0)
+    width = SP_MODEL["max_len"]
+    x = np.zeros((SP_ROWS, width), np.int64)
+    y = np.zeros((SP_ROWS, width), np.int64)
+    for i, n in enumerate(rng.integers(SP_LENGTHS[0], SP_LENGTHS[1] + 1,
+                                       SP_ROWS)):
+        seq = rng.integers(1, SP_MODEL["vocab_size"], n + 1)
+        x[i, :n], y[i, :n] = seq[:-1], seq[1:]
+    return x, y
+
+
+def _ring_hops(kv_mask) -> list[tuple]:
+    """The inputs K3 gets at every hop of one ring over the training
+    geometry: random q/k/v ``[B, L, H, D]`` with the first training
+    batch's pad mask through ``ring_attention`` (plain block update), each
+    hop's ``(q, k, v, keep, m, denom, acc)`` recorded, the carry from the
+    real previous hop."""
+    import torch
+
+    from mmlspark_tpu_torch.parallel import ring_attention as ring
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    b, n = kv_mask.shape
+    h = SP_MODEL["num_heads"]
+    d = SP_MODEL["embed_dim"] // h
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device=DEV)
+               for _ in range(3))
+    hops = []
+    inner = ring.attention_block_update
+
+    def record(*args, impl="auto"):
+        hops.append(args[:7])
+        return inner(*args, impl="torch")
+
+    ring.attention_block_update = record
+    try:
+        with torch.no_grad():
+            ring.ring_attention(q, k, v, make_mesh({"sp": SP_RANKS}, DEV),
+                                causal=True, kv_mask=kv_mask)
+    finally:
+        ring.attention_block_update = inner
+    return hops
+
+
+def _block_case(args, scale, name) -> tuple[dict, tuple]:
+    """K3 against its plain version on one input; both outputs checked."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    got = fa.attention_block_update(*args, scale, impl="cuda")
+    torch.cuda.synchronize()
+    want = fa.attention_block_update(*args, scale, impl="torch")
+    for g, w in zip(got, want):
+        check(g.shape == w.shape and g.dtype == torch.float32,
+              f"kernel output {tuple(g.shape)} {g.dtype}")
+    gm, wm = got[0], want[0]
+    check(bool((torch.isneginf(gm) == torch.isneginf(wm)).all()),
+          f"{name}: the kernel's unseen rows (m = -inf) differ")
+    fin = torch.isfinite(wm)
+    err_m = float((gm[fin] - wm[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    out_g = got[2] / torch.clamp(got[1], min=1e-30)
+    out_w = want[2] / torch.clamp(want[1], min=1e-30)
+    check(bool(torch.isfinite(out_g).all()), f"{name}: output not finite")
+    err = max(err_m, float((out_g - out_w).abs().max()))
+    n, h, tq, d = args[0].shape
+    row = {"phase": "kernel", "kernel": "attention_block_update",
+           "case": name, "N": n, "H": h, "Tq": tq, "Tk": args[1].shape[2],
+           "D": d, "kept_fraction": float((args[3] != 0).float().mean()),
+           "max_abs_err_m": err_m, "max_abs_err": err, "tol": BLOCK_TOL}
+    check(err <= BLOCK_TOL,
+          f"attention_block_update kernel differs from its plain version "
+          f"by {err} > {BLOCK_TOL} on {row}")
+    return row, got
+
+
+def phase_block_update() -> dict:
+    """K3 against its plain version at every hop of a ring over the
+    training geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the
+    first training batch's pad mask, causal), on a block with every key
+    kept, and at the edge cases; times and bounds per hop."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.train.loop import _batches
+    x, y = _sp_data()
+    first = next(_batches(x, y, SP_BATCH, 0))[0]
+    kv_mask = torch.from_numpy(first != 0).to(DEV)
+    hops = _ring_hops(kv_mask)
+    check(len(hops) == SP_RANKS, f"{len(hops)} hops, expected {SP_RANKS}")
+    scale = fa.resolve_scale(None, hops[0][0].shape[3])
+    worst = 0.0
+    timed = []
+    for step, args in enumerate(hops):
+        row, _ = _block_case(args, scale, f"ring hop {step}")
+        q, k, v, keep, m, den, acc = args     # keep: the ring's int8 mask
+        row["ms"] = time_ms(lambda: fa._block_update_cuda(
+            q, k, v, keep, m, den, acc, scale))
+        row["plain_ms"] = time_ms(lambda: fa.block_update_reference(
+            q, k, v, keep, m, den, acc, scale))
+        row["bound_ms"], row["bound_by"] = block_update_bound(
+            *q.shape[:3], k.shape[2], q.shape[3], keep)
+        row["bound_kernel_tiles_ms"] = block_update_bound(
+            *q.shape[:3], k.shape[2], q.shape[3], kernel_tile_keep(keep))[0]
+        row["bound_all_keys_ms"] = block_update_bound(
+            *q.shape[:3], k.shape[2], q.shape[3])[0]
+        # reference only: SDPA over the same block with the same mask and
+        # no carry (rows with no kept key give NaN there)
+        sdpa_mask = (keep != 0)[:, None]
+        row["sdpa_ms_no_carry"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask, scale=scale))
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        worst = max(worst, row["max_abs_err"])
+        timed.append(row)
+        emit(row)
+
+    # every key kept, the carry of the real hop 1: no stripe to skip
+    q, k, v, keep, m, den, acc = hops[1]
+    ones = torch.ones_like(keep, dtype=torch.int8)
+    row, _ = _block_case((q, k, v, ones, m, den, acc), scale,
+                         "every key kept")
+    row["ms"] = time_ms(lambda: fa._block_update_cuda(
+        q, k, v, ones, m, den, acc, scale))
+    row["plain_ms"] = time_ms(lambda: fa.block_update_reference(
+        q, k, v, ones, m, den, acc, scale))
+    row["bound_ms"], row["bound_by"] = block_update_bound(
+        *q.shape[:3], k.shape[2], q.shape[3])
+    row["sdpa_ms_no_carry"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    worst = max(worst, row["max_abs_err"])
+    dense = row
+    emit(row)
+
+    # edge cases: a pad-only block on the real carry (which must pass
+    # through bit for bit) and on the initial carry (exact (-inf, 0, 0))
+    zeros = torch.zeros_like(ones)
+    row, got = _block_case((q, k, v, zeros, m, den, acc), scale,
+                           "pad-only block, carry of hop 1")
+    check(all(torch.equal(g, a) for g, a in zip(got, (m, den, acc))),
+          "a pad-only block changed the carry")
+    row["carry_unchanged_bit_for_bit"] = True
+    emit(row)
+    m0 = torch.full_like(m, float("-inf"))
+    d0, a0 = torch.zeros_like(den), torch.zeros_like(acc)
+    row, got = _block_case((q, k, v, zeros, m0, d0, a0), scale,
+                           "pad-only block, initial carry")
+    check(bool(torch.isneginf(got[0]).all()) and not bool(got[1].any())
+          and not bool(got[2].any()),
+          "a pad-only block from the initial carry is not (-inf, 0, 0)")
+    row["initial_carry_exact"] = True
+    emit(row)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+
+    def inputs(n, h, tq, tk, d, keep_fn):
+        qq, kk, vv = (torch.randn((n, h, t, d), generator=gen, device=DEV)
+                      for t in (tq, tk, tk))
+        kk0, vv0 = (torch.randn((n, h, tk, d), generator=gen, device=DEV)
+                    for _ in range(2))
+        keep0 = torch.rand((n, tq, tk), generator=gen, device=DEV) > 0.5
+        keep0[:, :3] = False          # rows 0-2 unseen before this block
+        mm, dd, aa = fa.attention_block_update(
+            qq, kk0, vv0, keep0,
+            torch.full((n, h, tq, 1), float("-inf"), device=DEV),
+            torch.zeros((n, h, tq, 1), device=DEV),
+            torch.zeros((n, h, tq, d), device=DEV),
+            fa.resolve_scale(None, d), impl="torch")
+        return qq, kk, vv, keep_fn(n, tq, tk), mm, dd, aa
+
+    def causal(n, tq, tk):
+        return torch.ones((tq, tk), dtype=torch.bool,
+                          device=DEV).tril()[None].expand(n, tq, tk)
+
+    def holes(n, tq, tk):
+        keep = torch.rand((n, tq, tk), generator=gen, device=DEV) > 0.3
+        keep[0, 5] = False            # one query row with no key here
+        return keep
+
+    for name, shape, keep_fn in (
+            ("causal diagonal block", (8, 12, 256, 256, 64), causal),
+            ("pad holes", (8, 12, 256, 256, 64), holes),
+            ("D=128", (4, 4, 256, 256, 128), holes),
+            ("D=32", (4, 4, 128, 128, 32), causal),
+            ("ragged 37x200", (4, 3, 37, 200, 64), holes)):
+        args = inputs(*shape, keep_fn)
+        row, _ = _block_case(args, fa.resolve_scale(None, shape[-1]), name)
+        worst = max(worst, row["max_abs_err"])
+        emit(row)
+        del args
+
+    total = {key: sum(r[key] for r in timed)
+             for key in ("ms", "plain_ms", "bound_ms",
+                         "bound_kernel_tiles_ms", "bound_all_keys_ms",
+                         "sdpa_ms_no_carry")}
+    hops_n = len(timed)
+    out = {"phase": "kernel", "kernel": "attention_block_update",
+           "per_ring": f"sum over the {hops_n} hops of one layer's ring, "
+                       "first training batch", **total,
+           "x_bound": total["ms"] / total["bound_ms"],
+           "every_key_kept": {k: dense[k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "x_bound",
+               "sdpa_ms_no_carry")},
+           "max_abs_err": worst}
+    emit(out)
+    # per launch: the mean over the ring's hops; bound_by is the limit that
+    # sets the larger share of the hops' summed bound
+    by_share = {by: sum(r["bound_ms"] for r in timed if r["bound_by"] == by)
+                for by in ("bytes", "operations")}
+    return {"ms": total["ms"] / hops_n, "plain_ms": total["plain_ms"] / hops_n,
+            "bound_ms": total["bound_ms"] / hops_n,
+            "bound_by": max(by_share, key=by_share.get),
+            "max_abs_err": worst}
+
+
+def _sp_loss_and_grads(model, mesh, batch, impl: str) -> tuple:
+    """The first step's loss and gradients through the ring with the given
+    block-update route, from the model's current weights."""
+    import torch
+
+    from mmlspark_tpu_torch.parallel.ring_attention import ring_attention
+    from mmlspark_tpu_torch.train.loop import make_loss
+
+    def attention_fn(q, k, v, kv_mask, causal):
+        return ring_attention(q, k, v, mesh, causal=causal, kv_mask=kv_mask,
+                              impl=impl)
+
+    bx, by, bw = (torch.from_numpy(a).to(DEV) for a in batch)
+    model.zero_grad(set_to_none=True)
+    logits = model(bx, attention_fn=attention_fn)
+    per = make_loss("softmax_xent")(logits, by, token_mask=(bx != 0).float())
+    loss = (per * bw).sum() / torch.clamp(bw.sum(), min=1e-6)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _grad_gap(a: dict, b: dict) -> dict:
+    """How far gradients ``a`` lie from ``b``: the norm of the difference
+    over the norm of ``b``, over all parameters and for the worst tensor,
+    and the largest elementwise gap; whether every entry is finite."""
+    import torch
+    diff = norm = 0.0
+    worst = (0.0, "")
+    for k in a:
+        d = float((a[k] - b[k]).norm()) ** 2
+        u = float(b[k].norm()) ** 2
+        diff, norm = diff + d, norm + u
+        if u > 0:
+            worst = max(worst, ((d / u) ** 0.5, k))
+    return {"relative": (diff / norm) ** 0.5, "worst_tensor": worst,
+            "max_abs": max(float((a[k] - b[k]).abs().max()) for k in a),
+            "finite": all(bool(torch.isfinite(a[k]).all()) for k in a)}
+
+
+def _sp_step_profile(model, cfg, batch) -> dict:
+    """One training step through the kernel route, after one warm step:
+    host wall (synchronised) and, under ``torch.profiler``, the device's
+    busy time, its idle share of the wall, K3's forward kernels, the plain
+    block-update backward (the kernels launched inside its 48 calls) and
+    the busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.train.loop import Trainer
+    trainer = Trainer(model, cfg)
+    dx, dy, dw = (torch.from_numpy(a).to(DEV) for a in batch)
+    trainer.train_step(dx, dy, dw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(dx, dy, dw)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    inner = fa.block_update_backward
+    marked_name = "chip_smoke.block_update_backward"
+
+    def marked_backward(*args, **kwargs):
+        with record_function(marked_name):
+            return inner(*args, **kwargs)
+
+    fa.block_update_backward = marked_backward
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(dx, dy, dw)
+            torch.cuda.synchronize()
+    finally:
+        fa.block_update_backward = inner
+    events = prof.key_averages()
+    hops = SP_RANKS * SP_MODEL["num_layers"]
+    marked = [e for e in events
+              if e.key == marked_name and e.device_type == DeviceType.CPU]
+    check(len(marked) == 1 and marked[0].count == hops,
+          f"block-update backward ranges in the profiled step: "
+          f"{[(str(e.device_type), e.count) for e in marked]}")
+    device = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in events
+              if e.device_type == DeviceType.CUDA and e.key != marked_name
+              and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in device)
+    k3 = sum(ms for key, ms, _ in device if "block_update_kernel" in key)
+    k3_calls = sum(n for key, _, n in device if "block_update_kernel" in key)
+    check(k3_calls == hops, f"{k3_calls} K3 kernels in the profiled step, "
+                            f"expected {hops}")
+    bwd = marked[0].device_time_total / 1e3
+    del trainer
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share_of_wall": 1 - busy / wall,
+            "block_update_forward_ms": k3,
+            "block_update_forward_share_of_busy": k3 / busy,
+            "block_update_plain_backward_ms": bwd,
+            "block_update_plain_backward_share_of_busy": bwd / busy,
+            "kernels_launched": sum(n for _, _, n in device),
+            "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                            sorted(device, key=lambda d: -d[1])[:8]]}
+
+
+def phase_sp_train(card: str, bu: dict | None) -> int:
+    """Train the GPT-2-small-width TransformerTagger through
+    ``Trainer.fit_arrays`` on a mesh of ``sp`` virtual ranks (ring
+    attention, K3 per hop); returns K3's launches over the run."""
+    import torch
+
+    from mmlspark_tpu_torch.models.sequence import (
+        TransformerTagger, init_sequence_,
+    )
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+    from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig, _batches
+
+    t0 = time.perf_counter()
+    x, y = _sp_data()
+    model = init_sequence_(TransformerTagger(device=DEV, **SP_MODEL),
+                           torch.Generator(device=DEV).manual_seed(0))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cfg = TrainConfig(mesh_spec={"sp": SP_RANKS}, batch_size=SP_BATCH,
+                      optimizer="adamw", learning_rate=3e-4,
+                      weight_decay=0.01, log_every=1, prefetch_depth=2,
+                      device=DEV)
+    trainer = Trainer(model, cfg)
+    steps = -(-SP_ROWS // SP_BATCH)
+    batches = list(_batches(x, y, SP_BATCH, cfg.seed))
+    real_tokens = [int((bx != 0).sum()) for bx, _, _ in batches]
+    setup_s = time.perf_counter() - t0
+
+    # the main path: launch counts from 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.block_update_launches = 0
+    t_fit = time.perf_counter()
+    trainer.fit_arrays(x, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = fa.block_update_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hops = SP_RANKS * SP_MODEL["num_layers"]
+    check(trainer.global_step == steps, f"{trainer.global_step} steps, "
+                                        f"expected {steps}")
+    losses = list(trainer.history)
+    check(len(losses) == steps and all(np.isfinite(v) for v in losses),
+          f"losses {losses}")
+    check(launches == hops * steps,
+          f"{launches} block-update launches in {steps} steps, expected "
+          f"{hops} per step (the backward launches none)")
+    step_ms = trainer.step_ms
+    tokens_per_s = sum(real_tokens[1:]) / (sum(step_ms[1:]) / 1e3)
+    stats = trainer.input_stats
+    del trainer
+    model.load_state_dict(init)
+    torch.cuda.empty_cache()
+
+    # the first batch from the initial weights: the ring's logits through
+    # K3 against the unsharded forward, then the loss and the gradients
+    # through K3 against the plain block update on the card
+    mesh = make_mesh({"sp": SP_RANKS}, DEV)
+    first = batches[0]
+    bx = torch.from_numpy(first[0]).to(DEV)
+    hooks = model.mesh_hooks(mesh)
+    fa.block_update_launches = 0
+    with torch.no_grad():
+        ring_logits = model(bx, **hooks["apply_kwargs"])
+        plain_logits = model(bx)
+    check(fa.block_update_launches == hops,
+          f"the ring forward launched K3 {fa.block_update_launches} times")
+    valid = bx != 0
+    logit_err = float((ring_logits - plain_logits).abs()[valid].max())
+    logit_err_all = float((ring_logits - plain_logits).abs().max())
+    logit_max = float(plain_logits.abs().max())
+    check(bool(torch.isfinite(ring_logits).all()), "ring logits not finite")
+    del ring_logits, plain_logits
+    loss_k, grads_k = _sp_loss_and_grads(model, mesh, first, "cuda")
+    launched = fa.block_update_launches
+    loss_p, grads_p = _sp_loss_and_grads(model, mesh, first, "torch")
+    check(fa.block_update_launches == launched,
+          "the plain route launched the kernel")
+    gap = _grad_gap(grads_k, grads_p)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    profile_ = _sp_step_profile(model, cfg, first)
+    step_med = statistics.median(step_ms[1:])
+    out = {"phase": "sp_train", "model": "TransformerTagger, GPT-2 small "
+           "widths, causal, pad token 0", "card": card,
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "mesh": {"sp": SP_RANKS}, "rows": SP_ROWS, "batch": SP_BATCH,
+           "steps": steps, "sequence_lengths": list(SP_LENGTHS),
+           "optimizer": "adamw lr 3e-4 wd 0.01",
+           "real_tokens_per_step": real_tokens, "losses": losses,
+           "setup_s": setup_s, "fit_wall_s": fit_s, "step_ms": step_ms,
+           "step_ms_median_after_first": step_med,
+           "real_tokens_per_s_after_first": tokens_per_s,
+           "input_bound_fraction": stats["input_bound_fraction"],
+           "block_update_launches": launches,
+           "block_update_launches_per_step": launches / steps,
+           "block_update_share_of_step": None if bu is None
+           else hops * bu["ms"] / step_med,
+           "peak_memory_gb": peak_gb,
+           "first_batch": {
+               "ring_logits_max_abs_err_vs_unsharded": logit_err,
+               "ring_logits_max_abs_err_incl_pad_positions": logit_err_all,
+               "logit_max_abs": logit_max, "logit_tol": SP_LOGIT_TOL,
+               "loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_fit_arrays": losses[0],
+               "loss_gap": abs(loss_k - loss_p), "loss_tol": SP_LOSS_TOL,
+               "grad_gap": gap, "grad_tol": SP_GRAD_TOL},
+           "step_profile": profile_}
+    emit(out)
+    check(logit_err <= SP_LOGIT_TOL,
+          f"ring logits through K3 differ from the unsharded forward by "
+          f"{logit_err} > {SP_LOGIT_TOL} at real tokens")
+    check(abs(loss_k - loss_p) <= SP_LOSS_TOL,
+          f"first-step loss through K3 {loss_k} vs the plain update "
+          f"{loss_p}: gap past {SP_LOSS_TOL}")
+    check(gap["finite"], "a gradient through K3 is not finite")
+    check(gap["relative"] <= SP_GRAD_TOL
+          and gap["worst_tensor"][0] <= SP_GRAD_TOL,
+          f"first-step gradients through K3 differ from the plain update's "
+          f"by {gap}, past {SP_GRAD_TOL} (relative norm, over all "
+          f"parameters or in one tensor)")
+    return launches
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1324,6 +1860,20 @@ def main() -> int:
                 "max_abs_err": rs["max_abs_err"], "ms": rs["ms"],
                 "plain_ms": rs["plain_ms"], "bound_ms": rs["bound_ms"],
                 "bound_by": rs["bound_by"], "library_ms": None})
+    bu = phase_block_update() if "block_update" in phases else None
+    torch.cuda.empty_cache()
+    if "sp_train" in phases:
+        launches = phase_sp_train(card, bu)
+        torch.cuda.empty_cache()
+        if bu:
+            kernels.append({
+                "name": "attention_block_update", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/block_update.cu",
+                "replaces": "mmlspark_tpu/ops/pallas/attention.py:432",
+                "launches": launches, "max_abs_err": bu["max_abs_err"],
+                "ms": bu["ms"], "plain_ms": bu["plain_ms"],
+                "bound_ms": bu["bound_ms"], "bound_by": bu["bound_by"],
+                "library_ms": None})
     if kernels:
         emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -11,11 +11,14 @@ as the JAX module does (none of its ``Dense`` layers take a ``dtype``).
 Two entry points share the weights:
 
 * :meth:`TransformerTagger.forward` — the full forward over ``[B, L]``
-  tokens with a ``[B, L]`` pad mask; attention is the plain masked softmax
-  of ``parallel/ring_attention.attention_reference`` (plain XLA in the JAX
-  package, plain PyTorch here). ``return_cache=True`` also returns every
-  layer's K/V stacked ``[B, layers, H, L, head_dim]``: what prefill writes
-  into the cache slots;
+  tokens with a ``[B, L]`` pad mask (from ``pad_token_id`` when none is
+  passed); attention is the plain masked softmax of
+  ``parallel/ring_attention.attention_reference`` (plain XLA in the JAX
+  package, plain PyTorch here), or any ``attention_fn(q, k, v, kv_mask,
+  causal)``: :meth:`TransformerTagger.mesh_hooks` gives the trainer the
+  ring attention over a mesh's ``sp`` ranks, with the same weights.
+  ``return_cache=True`` also returns every layer's K/V stacked ``[B,
+  layers, H, L, head_dim]``: what prefill writes into the cache slots;
 * :meth:`TransformerTagger.decode_step` — one token per slot against the
   slot-major cache ``[S, layers, H, T_max, head_dim]``, attention through
   ``decode_attention`` (the CUDA kernel on the card).
@@ -26,14 +29,15 @@ positions].set(k)``) and then keeps the inactive rows with a whole-cache
 active slots (``index_put_``): the same result, without copying the cache
 (2.4 GB a layer at the GPT-2-small serving size) per layer and step.
 
-BiLSTM, the MoE FFN, ``mesh_hooks``, ``pad_sequences`` and
-``bucket_batches`` are not part of this port yet.
+The host helpers :func:`pad_sequences` and :func:`bucket_batches` build
+padded token batches (numpy, copied from the JAX package). BiLSTM, the MoE
+FFN and its ``ep`` mesh hook are not part of this port yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -44,39 +48,9 @@ from mmlspark_tpu_torch.core.plan import _upload
 from mmlspark_tpu_torch.device import resolve_device
 from mmlspark_tpu_torch.models.vit import _TRUNC_STD, Dense, LayerNorm
 from mmlspark_tpu_torch.ops.attention import decode_attention
-
-
-def _masked_softmax(scores: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis where -inf marks masked entries; rows
-    with every entry masked give zero weights (not NaN)."""
-    m = scores.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, 0.0)
-    e = torch.exp(scores - m)  # exp(-inf) == 0 for masked entries
-    return e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
-
-
-def _local_attention(q, k, v, scale: float, mask=None) -> torch.Tensor:
-    """Plain softmax attention: ``[B, Lq, H, D]`` x ``[B, Lk, H, D]``."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    if mask is not None:
-        scores = scores.masked_fill(~mask, float("-inf"))
-    return torch.einsum("bhqk,bkhd->bqhd", _masked_softmax(scores), v)
-
-
-def attention_reference(q, k, v, causal: bool = False, kv_mask=None
-                        ) -> torch.Tensor:
-    """Single-device attention over ``[B, L, H, D]`` operands; ``kv_mask``
-    ``[B, Lk]`` bool, True for real (non-pad) keys."""
-    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
-    mask = None
-    if causal:
-        n = q.shape[1]
-        mask = torch.ones((n, n), dtype=torch.bool,
-                          device=q.device).tril()[None, None]
-    if kv_mask is not None:
-        key_mask = kv_mask.to(torch.bool)[:, None, None, :]
-        mask = key_mask if mask is None else (mask & key_mask)
-    return _local_attention(q, k, v, scale, mask)
+from mmlspark_tpu_torch.parallel.ring_attention import (
+    attention_reference, ring_attention,
+)
 
 
 class _Block(nn.Module):
@@ -103,7 +77,8 @@ class TransformerTagger(nn.Module):
     def __init__(self, vocab_size: int = 1024, embed_dim: int = 64,
                  num_heads: int = 4, num_layers: int = 2, mlp_dim: int = 128,
                  num_tags: int = 8, max_len: int = 2048,
-                 causal: bool = False, device=None):
+                 causal: bool = False, pad_token_id: int | None = None,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         if embed_dim % num_heads:
@@ -117,6 +92,10 @@ class TransformerTagger(nn.Module):
         self.num_tags = num_tags
         self.max_len = max_len
         self.causal = causal
+        # when set and no mask is passed, tokens equal to this id are
+        # padding: how Trainer.fit_arrays's plain (tokens, tags) batches
+        # reach the attention mask and the per-token loss
+        self.pad_token_id = pad_token_id
         self.embed = nn.Embedding(vocab_size, embed_dim, device=device)
         self.pos_embed = nn.Parameter(
             torch.empty(max_len, embed_dim, device=device))
@@ -130,14 +109,20 @@ class TransformerTagger(nn.Module):
         return self.embed_dim // self.num_heads
 
     def forward(self, tokens: torch.Tensor, mask=None,
-                return_cache: bool = False):
+                return_cache: bool = False,
+                attention_fn: Callable | None = None):
         """Full forward. ``tokens`` ``[B, L]``; ``mask`` ``[B, L]`` bool
-        (True = real token; pad keys are excluded from attention). Returns
+        (True = real token; pad keys are excluded from attention), or
+        ``tokens != pad_token_id`` when None and the id is set.
+        ``attention_fn(q, k, v, kv_mask, causal)`` over ``[B, L, H,
+        head_dim]`` defaults to :func:`attention_reference`. Returns
         logits ``[B, L, num_tags]``, and with ``return_cache`` also
         ``(ck, cv)``, each ``[B, layers, H, L, head_dim]``."""
         b, n = tokens.shape
         if n > self.max_len:
             raise ValueError(f"{n} tokens > max_len {self.max_len}")
+        if mask is None and self.pad_token_id is not None:
+            mask = tokens != self.pad_token_id
         h, hd = self.num_heads, self.head_dim
         x = self.embed(tokens.long()) + self.pos_embed[None, :n]
         kv_mask = None if mask is None else mask.to(x.device, torch.bool)
@@ -149,8 +134,11 @@ class TransformerTagger(nn.Module):
             v = v.reshape(b, n, h, hd)
             if return_cache:
                 kv_layers.append((k.transpose(1, 2), v.transpose(1, 2)))
-            attn = attention_reference(q, k, v, causal=self.causal,
-                                       kv_mask=kv_mask)
+            if attention_fn is None:
+                attn = attention_reference(q, k, v, causal=self.causal,
+                                           kv_mask=kv_mask)
+            else:
+                attn = attention_fn(q, k, v, kv_mask, self.causal)
             x = x + blk.proj(attn.reshape(b, n, self.embed_dim))
             x = blk.mlp(x)
         logits = self.head(self.ln_f(x))
@@ -159,6 +147,21 @@ class TransformerTagger(nn.Module):
             cv = torch.stack([v for _, v in kv_layers], dim=1)
             return logits, (ck, cv)
         return logits
+
+    def mesh_hooks(self, mesh) -> dict:
+        """Trainer integration (``train/loop.resolve_mesh_hooks``): on a
+        mesh with ``sp > 1`` attention runs as the ring over its ``sp``
+        ranks, with the same weights."""
+        kwargs: dict = {}
+        handled: set = set()
+        if mesh.shape.get("sp", 1) > 1:
+            def attention_fn(q, k, v, kv_mask, causal, _mesh=mesh):
+                return ring_attention(q, k, v, _mesh, causal=causal,
+                                      kv_mask=kv_mask)
+
+            kwargs["attention_fn"] = attention_fn
+            handled.add("sp")
+        return {"apply_kwargs": kwargs, "handled": handled}
 
     def decode_step(self, tokens: torch.Tensor, cache: tuple, positions,
                     update_mask=None,
@@ -234,3 +237,74 @@ def init_sequence_(model: TransformerTagger,
                                generator=generator)
     model.pos_embed.normal_(0.0, 0.02, generator=generator)
     return model
+
+
+# ---- padded/bucketed batching (copied from the JAX package, numpy) ----
+
+def _check_sequence(i: int, s) -> np.ndarray:
+    """Validate one token sequence; returns it as an int32 array. An empty
+    sequence or non-integer tokens raise instead of padding silently."""
+    arr = np.asarray(s)
+    if arr.ndim != 1:
+        raise ValueError(
+            f"sequence {i} has shape {arr.shape}; expected a flat 1-D "
+            "token sequence")
+    if arr.size == 0:
+        raise ValueError(
+            f"sequence {i} is empty; an empty sequence has no tokens to "
+            "tag (drop it before batching)")
+    if not np.issubdtype(arr.dtype, np.integer):
+        if arr.dtype == bool or not np.issubdtype(arr.dtype, np.number) \
+                or not np.array_equal(arr, arr.astype(np.int64)):
+            raise TypeError(
+                f"sequence {i} has non-integer tokens (dtype "
+                f"{arr.dtype}); token ids must be integers")
+    return arr.astype(np.int32)
+
+
+def pad_sequences(seqs: Sequence[Sequence[int]], length: int,
+                  pad_value: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Pad token sequences to ``length``; returns ``(tokens, mask)``.
+    Raises ``ValueError`` for empty or overlong sequences (never
+    truncates) and ``TypeError`` for non-integer tokens."""
+    out = np.full((len(seqs), length), pad_value, dtype=np.int32)
+    mask = np.zeros((len(seqs), length), dtype=bool)
+    for i, s in enumerate(seqs):
+        arr = _check_sequence(i, s)
+        n = arr.shape[0]
+        if n > length:
+            raise ValueError(
+                f"sequence {i} has {n} tokens > pad length {length}; "
+                "truncation would silently drop tokens")
+        out[i, :n] = arr
+        mask[i, :n] = True
+    return out, mask
+
+
+def bucket_batches(seqs: Sequence[Sequence[int]], batch_size: int,
+                   bucket_sizes: Sequence[int] = (64, 128, 256, 512, 1024),
+                   pad_value: int = 0):
+    """Group sequences into fixed-shape padded batches, each sequence in
+    the smallest bucket that covers it. Yields ``(tokens [b, bucket],
+    mask, indices)`` with the original row indices. Raises ``ValueError``
+    for an empty sequence or one longer than the largest bucket and
+    ``TypeError`` for non-integer tokens."""
+    bucket_sizes = sorted(bucket_sizes)
+    buckets: dict[int, list[int]] = {b: [] for b in bucket_sizes}
+    overflow = max(bucket_sizes)
+    for i, s in enumerate(seqs):
+        n = _check_sequence(i, s).shape[0]
+        if n > overflow:
+            raise ValueError(
+                f"sequence {i} has {n} tokens > largest bucket "
+                f"{overflow}; truncation would silently drop tokens")
+        for b in bucket_sizes:
+            if n <= b:
+                buckets[b].append(i)
+                break
+    for b, idxs in buckets.items():
+        for start in range(0, len(idxs), batch_size):
+            chunk = idxs[start:start + batch_size]
+            toks, mask = pad_sequences([seqs[i] for i in chunk], b,
+                                       pad_value)
+            yield toks, mask, np.asarray(chunk)

@@ -41,6 +41,23 @@ dispatches on ``impl`` like :func:`flash_attention`; ``decode_launches``
 counts the launches of ``ops/csrc/decode_attention.cu``. The kernel takes
 float32 operands and ``D <= 128`` with ``D % 8 == 0``; the wrapper raises
 on anything else, whichever route is taken.
+
+The ring-hop block update is the port of
+``mmlspark_tpu/ops/pallas/attention.py:attention_block_update`` (the
+Pallas kernel ``_update_call``), the per-hop local block of
+``parallel/ring_attention.ring_attention``: one online-softmax update of a
+carried ``(m, denom, acc)`` over a whole K/V block, q ``[N, H, Tq, D]``,
+k/v ``[N, H, Tk, D]``, one ``[N, Tq, Tk]`` keep-mask shared by every head,
+all float32. :func:`block_update_reference` is its plain version (the JAX
+package's ``xla`` route: one ``_online_update`` over the whole block, no
+inner key-block loop); :func:`attention_block_update` dispatches on
+``impl`` like the others; ``block_update_launches`` counts the launches of
+``ops/csrc/block_update.cu``. The kernel route is an autograd function
+whose backward recomputes the plain update and differentiates it, as the
+JAX package has no backward kernel for it. The wrapper makes every operand
+contiguous (the ring's rank-major fold is a copy already) and raises on
+non-float32 operands, mismatched shapes and a ``D`` the kernel does not
+take, whichever route is taken.
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of the CUDA kernels; reset by whoever reads them
 launches = 0
 decode_launches = 0
+block_update_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -380,3 +398,131 @@ def decode_attention(q, k, v, kv_mask=None, scale=None, impl: str = "auto",
     if route == "cuda":
         return _decode_cuda(q, k, v, keep, sc)
     return decode_attention_reference(q, k, v, keep, sc, block_k)
+
+
+# ---- the ring-hop block update (one online update over a whole block) ----
+
+
+def block_update_reference(q4, k4, v4, keep3, m, denom, acc, scale):
+    """Plain PyTorch block update: one :func:`_online_update` over the
+    whole key block, batched over (N, H). ``keep3`` ``[N, Tq, Tk]``
+    (nonzero = attend). Returns the fresh ``(m, denom, acc)``."""
+    return _online_update(q4, k4, v4, (keep3 != 0)[:, None], m, denom, acc,
+                          scale)
+
+
+def _check_block_operands(q4, k4, v4, keep3, m, denom, acc) -> None:
+    for name, t in (("q4", q4), ("k4", k4), ("v4", v4), ("m", m),
+                    ("denom", denom), ("acc", acc)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}; "
+                            "attention_block_update takes float32")
+        if t.device != q4.device:
+            raise ValueError(f"{name} is on {t.device}, q4 on {q4.device}")
+    if keep3.device != q4.device:
+        raise ValueError(f"keep3 is on {keep3.device}, q4 on {q4.device}")
+    if q4.dim() != 4:
+        raise ValueError(f"q4 must be [N, H, Tq, D], got {tuple(q4.shape)}")
+    n, h, tq, d = q4.shape
+    tk = k4.shape[2] if k4.dim() == 4 else -1
+    want = {"k4": (n, h, tk, d), "v4": (n, h, tk, d), "keep3": (n, tq, tk),
+            "m": (n, h, tq, 1), "denom": (n, h, tq, 1), "acc": (n, h, tq, d)}
+    for name, t in (("k4", k4), ("v4", v4), ("keep3", keep3), ("m", m),
+                    ("denom", denom), ("acc", acc)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"shape mismatch: {name} is {tuple(t.shape)}, "
+                             f"expected {want[name]} for q4 "
+                             f"{tuple(q4.shape)}")
+    if d > MAX_D or d % 8:
+        raise ValueError(
+            f"head width D={d} unsupported: the kernel takes D <= {MAX_D} "
+            "with D a multiple of 8")
+
+
+def _block_update_fn():
+    """The C entry point of ``ops/csrc/block_update.cu``, built on first
+    use, every argument typed."""
+    from mmlspark_tpu_torch.ops import _build
+    fn = _build.load("block_update").block_update_fwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _block_update_cuda(q4, k4, v4, keep3, m, denom, acc, scale: float):
+    """Launch the block-update kernel on the current stream; the fresh
+    carry is allocated here, the kernel allocates nothing."""
+    global block_update_launches
+    q4, k4, v4, m, denom, acc = (t.contiguous() for t in
+                                 (q4, k4, v4, m, denom, acc))
+    keep = keep3 if keep3.dtype == torch.int8 else keep3.to(torch.bool).to(
+        torch.int8)
+    keep = keep.contiguous()
+    n, h, tq, d = q4.shape
+    tk = k4.shape[2]
+    fn = _block_update_fn()
+    m_out, d_out, a_out = (torch.empty_like(t) for t in (m, denom, acc))
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        with _count_lock:
+            block_update_launches += 1
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                 keep.data_ptr(), m.data_ptr(), denom.data_ptr(),
+                 acc.data_ptr(), m_out.data_ptr(), d_out.data_ptr(),
+                 a_out.data_ptr(), n, h, tq, tk, d, scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"block_update kernel launch failed: cudaError {err} "
+            f"(N={n}, H={h}, Tq={tq}, Tk={tk}, D={d})")
+    return m_out, d_out, a_out
+
+
+def block_update_backward(grads, q4, k4, v4, keep3, m, denom, acc,
+                          scale: float):
+    """The gradients of ``q4``, ``k4``, ``v4``, ``m``, ``denom`` and
+    ``acc``: the plain update recomputed under autograd and differentiated
+    against ``grads``, the gradients of the fresh ``(m, denom, acc)``."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in
+                  (q4, k4, v4, m, denom, acc)]
+        q, k, v, m_, d_, a_ = inputs
+        outs = block_update_reference(q, k, v, keep3, m_, d_, a_, scale)
+        return torch.autograd.grad(outs, inputs, grads)
+
+
+class _BlockUpdateKernel(torch.autograd.Function):
+    """Kernel forward; backward through the plain version's autograd."""
+
+    @staticmethod
+    def forward(ctx, q4, k4, v4, keep3, m, denom, acc, scale):
+        ctx.save_for_backward(q4, k4, v4, keep3, m, denom, acc)
+        ctx.scale = scale
+        return _block_update_cuda(q4, k4, v4, keep3, m, denom, acc, scale)
+
+    @staticmethod
+    def backward(ctx, g_m, g_denom, g_acc):
+        q4, k4, v4, keep3, m, denom, acc = ctx.saved_tensors
+        gq, gk, gv, gm, gd, ga = block_update_backward(
+            (g_m, g_denom, g_acc), q4, k4, v4, keep3, m, denom, acc,
+            ctx.scale)
+        return gq, gk, gv, None, gm, gd, ga, None
+
+
+def attention_block_update(q4, k4, v4, keep3, m, denom, acc, scale,
+                           impl: str = "auto"):
+    """One online-softmax update of the carry over a whole K/V block —
+    ``ring_attention``'s per-hop local block.
+
+    ``q4`` ``[N, H, Tq, D]``, ``k4``/``v4`` ``[N, H, Tk, D]``, ``keep3``
+    ``[N, Tq, Tk]`` bool or int8 (nonzero = attend, shared by every head),
+    carry ``m``/``denom`` ``[N, H, Tq, 1]`` and ``acc`` ``[N, H, Tq, D]``,
+    all float32. Returns the fresh ``(m, denom, acc)``; the caller divides
+    ``acc`` by ``max(denom, 1e-30)`` after its last block."""
+    _check_block_operands(q4, k4, v4, keep3, m, denom, acc)
+    route = resolve_impl(impl, q4)
+    s = float(np.float32(scale))
+    if route == "cuda":
+        return _BlockUpdateKernel.apply(q4, k4, v4, keep3, m, denom, acc, s)
+    return block_update_reference(q4, k4, v4, keep3, m, denom, acc, s)

@@ -1,4 +1,4 @@
-"""The single-device training loop: ``Trainer.fit_arrays``.
+"""The training loop on one card: ``Trainer.fit_arrays``.
 
 The port of ``mmlspark_tpu/train/loop.py`` for one device
 (``TrainConfig``, ``make_optimizer``, ``make_loss``, the masked step of
@@ -8,6 +8,22 @@ the forward, a per-example loss, the row-weighted mean
 ``(per·w).sum() / max(w.sum(), 1e-6)`` (zero-weight rows are the
 zero-padded tail of an epoch and train as exact no-ops), the backward
 and the optimizer update.
+
+Per-token losses (logits ``[B, L, C]``, class axis last) reduce over ``L``
+with the masked mean of ``_row_reduce``; for an integer ``[B, L]`` token
+batch the step derives the ``token_mask`` from the module's
+``pad_token_id``, as the JAX package's ``_token_mask`` does, so pad
+positions count in neither the numerator nor the denominator of a row's
+loss.
+
+``TrainConfig.mesh_spec`` (or a ``mesh``) lays the step out on a mesh of
+virtual ranks on the card (:mod:`mmlspark_tpu_torch.parallel.mesh`). The
+module's ``mesh_hooks`` turn extra axes on with the same weights (a
+``TransformerTagger`` runs ring attention over ``sp``), and an axis that
+nothing uses raises, as in the JAX package. ``dp`` rounds the batch down
+to a multiple of its size and changes no number; ``fsdp`` and ``tp``
+above 1 are not ported and raise ``NotImplementedError``. No module of
+the port uses ``pp`` or ``ep``, so they raise as unused axes.
 
 ``fit_arrays`` walks the same shuffled batches as the JAX package
 (``_batches`` is numpy, copied verbatim), feeds them through a
@@ -21,7 +37,7 @@ Optimizers follow optax's definitions: ``sgd``, ``momentum``
 Nesterov), ``adam`` (b1 0.9, b2 0.999, eps 1e-8 outside the square root)
 and ``adamw`` (decoupled decay ``lr·wd·p``).
 
-Meshes, several hosts, checkpoints and ``fit_stream`` are not ported.
+Several hosts and cards, checkpoints and ``fit_stream`` are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +52,7 @@ import torch.nn.functional as F
 
 from mmlspark_tpu_torch.core.logging_utils import get_logger, timed
 from mmlspark_tpu_torch.device import resolve_device
+from mmlspark_tpu_torch.parallel import mesh as mesh_lib
 from mmlspark_tpu_torch.train import preprocess as preprocess_lib
 from mmlspark_tpu_torch.train.anomaly import NonFiniteSentinel
 from mmlspark_tpu_torch.train.input import (
@@ -72,6 +89,9 @@ class TrainConfig:
     nonfinite_loss: str = "raise"
     # where to train: None = cuda (raises without a card), or "cpu"
     device: Any = None
+    # MeshSpec | dict | None: the axes of the mesh of virtual ranks on the
+    # card (parallel/mesh.py); None = one rank
+    mesh_spec: Any = None
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
@@ -90,34 +110,98 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
                      f"{OPTIMIZERS}")
 
 
-def _per_example(per: torch.Tensor) -> torch.Tensor:
-    # multi-output heads: one loss per example, the mean over the rest
-    return per.reshape(per.shape[0], -1).mean(dim=1) if per.dim() > 1 \
-        else per
+def _row_reduce(per: torch.Tensor, token_mask) -> torch.Tensor:
+    """``[B, ...]`` per-position losses → ``[B]`` per-example.
+
+    With a ``token_mask`` (``[B, L]``): the masked mean. The mask must
+    match the loss grid's leading axes and broadcasts over any trailing
+    (class) axes; a mask that tiles neither way raises, never a silent
+    plain mean."""
+    if token_mask is not None:
+        if tuple(token_mask.shape) != tuple(per.shape[:token_mask.dim()]):
+            raise ValueError(
+                f"token_mask shape {tuple(token_mask.shape)} does not "
+                f"tile per-position loss shape {tuple(per.shape)}")
+        tm = token_mask.reshape(tuple(token_mask.shape)
+                                + (1,) * (per.dim() - token_mask.dim()))
+        tm = tm.expand(per.shape).to(per.dtype)
+        per = (per * tm).reshape(per.shape[0], -1)
+        tm = tm.reshape(per.shape)
+        return per.sum(dim=1) / torch.clamp(tm.sum(dim=1), min=1.0)
+    return per.reshape(per.shape[0], -1).mean(dim=1)
 
 
 def make_loss(kind: str) -> Callable:
-    """Per-example loss ``[B]``; the step takes its row-weighted mean."""
+    """Per-example loss ``[B]``; the step takes its row-weighted mean.
+    ``token_mask`` (``[B, L]`` 0/1, optional): per-token tasks reduce over
+    ``L`` with a masked mean (see :func:`_row_reduce`)."""
     if kind == "softmax_xent":
-        def loss(logits, labels):
-            return _per_example(F.cross_entropy(
-                logits.float(), labels.long(), reduction="none"))
+        def loss(logits, labels, token_mask=None):
+            # the class axis is the last one, as in optax's
+            # softmax_cross_entropy_with_integer_labels
+            z = logits.float()
+            per = F.cross_entropy(z.reshape(-1, z.shape[-1]),
+                                  labels.long().reshape(-1),
+                                  reduction="none").reshape(labels.shape)
+            return _row_reduce(per, token_mask) if per.dim() > 1 else per
     elif kind == "sigmoid_xent":
-        def loss(logits, labels):
+        def loss(logits, labels, token_mask=None):
             z = logits.float()
             if z.dim() > labels.dim() and z.shape[-1] == 1:
                 z = z.squeeze(-1)  # binary head [B, 1] vs labels [B]
-            return _per_example(F.binary_cross_entropy_with_logits(
-                z, labels.to(z.dtype), reduction="none"))
+            per = F.binary_cross_entropy_with_logits(
+                z, labels.to(z.dtype), reduction="none")
+            return _row_reduce(per, token_mask) if per.dim() > 1 else per
     elif kind == "mse":
-        def loss(logits, labels):
+        def loss(logits, labels, token_mask=None):
             pred = logits.float()
             if pred.dim() > labels.dim():
                 pred = pred.squeeze(-1)
-            return _per_example((pred - labels.to(pred.dtype)) ** 2)
+            per = (pred - labels.to(pred.dtype)) ** 2
+            return _row_reduce(per, token_mask) if per.dim() > 1 else per
     else:
         raise ValueError(f"unknown loss {kind!r}; one of {LOSSES}")
     return loss
+
+
+def resolve_mesh_hooks(module: Any, mesh: Any) -> dict:
+    """Ask the module how it uses the mesh beyond dp: ``mesh_hooks(mesh)``
+    returns ``apply_kwargs`` (extra forward kwargs that turn a parallel
+    path on with the same weights, e.g. a ring ``attention_fn`` for
+    ``sp``) and ``handled`` (the extra axes those kwargs use). Every
+    virtual rank holds every parameter, so the JAX package's
+    ``param_rules`` have nothing to place here."""
+    hooks = {"apply_kwargs": {}, "handled": set()}
+    if hasattr(module, "mesh_hooks"):
+        got = module.mesh_hooks(mesh) or {}
+        hooks["apply_kwargs"] = dict(got.get("apply_kwargs", {}))
+        hooks["handled"] = set(got.get("handled", ()))
+    return hooks
+
+
+_EXTRA_AXES = ("sp", "pp", "ep")  # beyond the always-used dp/fsdp/tp
+_NOT_PORTED_AXES = ("fsdp", "tp")  # pp and ep: check_mesh_axes_used
+
+
+def check_mesh_axes_used(module: Any, mesh: Any, handled: set) -> None:
+    """Refuse meshes with axes the training step would silently waste."""
+    unused = [a for a in _EXTRA_AXES if mesh.shape.get(a, 1) > 1
+              and a not in handled]
+    if unused:
+        raise ValueError(
+            f"mesh axes {unused} have extent > 1 but "
+            f"{type(module).__name__} does not use them — training would "
+            "silently replicate all work over those devices. Use a module "
+            "that implements mesh_hooks for these axes (TransformerTagger:"
+            " sp via ring attention), or drop the axes from mesh_spec.")
+
+
+def _check_mesh_ported(mesh: Any) -> None:
+    big = [a for a in _NOT_PORTED_AXES if mesh.shape.get(a, 1) > 1]
+    if big:
+        raise NotImplementedError(
+            f"mesh axes {big} > 1 are not ported: the port trains over dp "
+            "and sp (ring attention) only")
 
 
 def _batches(x: np.ndarray, y: np.ndarray, batch_size: int,
@@ -150,12 +234,16 @@ def _batches(x: np.ndarray, y: np.ndarray, batch_size: int,
 
 
 class Trainer:
-    """Array-in trainer on one device.
+    """Array-in trainer on one card.
 
-    ``module`` is an ``nn.Module`` whose forward maps a float NHWC batch
-    (after preprocessing) to logits; it is moved to ``cfg.device``.
+    ``module`` is an ``nn.Module`` whose forward maps a batch (a float
+    NHWC image batch after preprocessing, or an integer ``[B, L]`` token
+    matrix) to logits; it is moved to ``cfg.device``.
     ``initial_state_dict`` (or :meth:`load_state_dict`) sets its weights
-    before training, e.g. weights converted from the JAX package.
+    before training, e.g. weights converted from the JAX package. ``mesh``
+    (default: ``make_mesh(cfg.mesh_spec)`` on the trainer's device) lays
+    the step out on virtual ranks; the module's ``mesh_hooks`` use its
+    extra axes.
 
     After ``fit_arrays``: ``history`` holds the logged losses,
     ``global_step`` the steps taken, ``input_stats`` the input-wait
@@ -164,9 +252,18 @@ class Trainer:
 
     def __init__(self, module: torch.nn.Module,
                  cfg: TrainConfig | None = None,
-                 initial_state_dict: dict | None = None):
+                 initial_state_dict: dict | None = None, mesh: Any = None):
         self.cfg = cfg or TrainConfig()
         self.device = resolve_device(self.cfg.device)
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(
+            self.cfg.mesh_spec, self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"mesh on {self.mesh.device}, trainer on "
+                             f"{self.device}")
+        hooks = resolve_mesh_hooks(module, self.mesh)
+        check_mesh_axes_used(module, self.mesh, hooks["handled"])
+        _check_mesh_ported(self.mesh)
+        self.apply_kwargs = hooks["apply_kwargs"]
         self.module = module.to(self.device)
         self.preprocess = preprocess_lib.DevicePreprocess.parse(
             self.cfg.preprocess)
@@ -199,15 +296,25 @@ class Trainer:
                                         cfg.input_scale)
         if x.dtype == torch.uint8:
             return x.to(torch.float32) * float(np.float32(cfg.input_scale))
-        return x
+        return x  # float batches and integer token matrices pass untouched
+
+    def _token_mask(self, x: torch.Tensor) -> torch.Tensor | None:
+        """``[B, L]`` 0/1 pad mask of an integer token batch, derived as the
+        module derives its attention mask (``pad_token_id``)."""
+        pad_id = getattr(self.module, "pad_token_id", None)
+        if pad_id is not None and x.dim() == 2 \
+                and not x.dtype.is_floating_point:
+            return (x != pad_id).to(torch.float32)
+        return None
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
         """One masked step on device tensors; returns the loss (a device
         scalar, not fetched)."""
         self.module.train()
-        logits = self.module(self._prep_x(x, self.global_step))
-        per = self.loss_fn(logits, y)
+        logits = self.module(self._prep_x(x, self.global_step),
+                             **self.apply_kwargs)
+        per = self.loss_fn(logits, y, token_mask=self._token_mask(x))
         loss = (per * w).sum() / torch.clamp(w.sum(), min=1e-6)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -221,10 +328,13 @@ class Trainer:
         cfg = self.cfg
         if len(x) != len(y):
             raise ValueError(f"x has {len(x)} rows, y {len(y)}")
-        bs = min(cfg.batch_size, len(x))
+        # the batch divides over the data axis, as in the JAX package
+        dp = self.mesh.shape["dp"]
+        bs = min(cfg.batch_size, len(x)) // dp * dp
         if bs <= 0:
             raise ValueError(f"dataset of {len(x)} rows with batch_size "
-                             f"{cfg.batch_size}: nothing to train")
+                             f"{cfg.batch_size} on dp={dp}: nothing to "
+                             "train")
         if self.preprocess is not None and x.ndim == 4:
             self.preprocess.out_shape(x.shape[1:])   # fail before any step
         h2d = HostToDevice(self.device)

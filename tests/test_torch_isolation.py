@@ -139,6 +139,54 @@ def test_generation_on_cpu_loads_no_jax_module():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_sequence_parallel_training_on_cpu_loads_no_jax_module():
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from mmlspark_tpu_torch.models.sequence import (
+            TransformerTagger, init_sequence_, pad_sequences)
+        from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig
+        model = TransformerTagger(vocab_size=50, embed_dim=16, num_heads=2,
+                                  num_layers=1, mlp_dim=32, num_tags=50,
+                                  max_len=16, causal=True, pad_token_id=0,
+                                  device="cpu")
+        init_sequence_(model, torch.Generator().manual_seed(0))
+        x, _ = pad_sequences([[1, 2, 3], [4, 5, 6, 7, 8, 9]], 16)
+        y = np.roll(x, -1, axis=1)
+        cfg = TrainConfig(mesh_spec={"sp": 4}, batch_size=2, log_every=1,
+                          device="cpu")
+        trainer = Trainer(model, cfg).fit_arrays(x, y)
+        assert len(trainer.history) == 1
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_sequence_parallel_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mmlspark_tpu_torch.ops.attention import attention_block_update
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh({"sp": 4})
+    assert make_mesh({"sp": 4}, "cpu").size == 4
+    q = torch.zeros(1, 1, 4, 8)
+    keep = torch.ones(1, 4, 4, dtype=torch.bool)
+    m = torch.zeros(1, 1, 4, 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        attention_block_update(q, q, q, keep, m, m, q, 0.5, impl="cuda")
+
+
 def test_generation_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

@@ -197,28 +197,67 @@ def test_optimizers_follow_optax(name):
         tloop.make_optimizer(tloop.TrainConfig(optimizer="lamb"), [p])
 
 
+def _token_mask(r, b, n):
+    # right-padded rows of lengths 1..n, one of them a full row
+    lengths = r.integers(1, n + 1, b)
+    lengths[0] = n
+    return (np.arange(n)[None, :] < lengths[:, None]).astype(np.float32)
+
+
+# case -> (logits shape, labels, token mask or None). The per-token cases
+# put the class axis last ([B, L, C], as the JAX package's losses read it);
+# L == C is the case where an axis-1 class reading gives a loss of the
+# right shape and the wrong value
 LOSS_CASES = {
-    "softmax_xent": ((6, 5), lambda r: r.integers(0, 5, 6)),
-    "sigmoid_xent": ((6, 1), lambda r: r.integers(0, 2, 6)),
-    "sigmoid_xent_multilabel": ((6, 4), lambda r: r.integers(0, 2, (6, 4))),
-    "mse": ((6, 1), lambda r: r.normal(size=6)),
-    "mse_multitarget": ((6, 3), lambda r: r.normal(size=(6, 3))),
+    "softmax_xent": ((6, 5), lambda r: r.integers(0, 5, 6), None),
+    "softmax_xent_per_token": ((6, 7, 5), lambda r: r.integers(0, 5, (6, 7)),
+                               None),
+    "softmax_xent_per_token_square": (
+        (6, 5, 5), lambda r: r.integers(0, 5, (6, 5)), None),
+    "softmax_xent_per_token_masked": (
+        (6, 7, 5), lambda r: r.integers(0, 5, (6, 7)),
+        lambda r: _token_mask(r, 6, 7)),
+    "softmax_xent_per_token_square_masked": (
+        (6, 5, 5), lambda r: r.integers(0, 5, (6, 5)),
+        lambda r: _token_mask(r, 6, 5)),
+    "sigmoid_xent": ((6, 1), lambda r: r.integers(0, 2, 6), None),
+    "sigmoid_xent_multilabel": ((6, 4), lambda r: r.integers(0, 2, (6, 4)),
+                                None),
+    "sigmoid_xent_per_token_masked": (
+        (6, 7, 4), lambda r: r.integers(0, 2, (6, 7, 4)),
+        lambda r: _token_mask(r, 6, 7)),
+    "mse": ((6, 1), lambda r: r.normal(size=6), None),
+    "mse_multitarget": ((6, 3), lambda r: r.normal(size=(6, 3)), None),
+    "mse_per_token_masked": ((6, 7, 1), lambda r: r.normal(size=(6, 7)),
+                             lambda r: _token_mask(r, 6, 7)),
 }
 
 
 @pytest.mark.parametrize("case", sorted(LOSS_CASES))
 def test_losses_match_the_jax_packages(case):
-    kind = case.split("_multi")[0]
-    shape, labels = LOSS_CASES[case]
+    kind = case.split("_multi")[0].split("_per_token")[0]
+    shape, labels, token_mask = LOSS_CASES[case]
     r = np.random.default_rng(3)
     logits = r.normal(size=shape).astype(np.float32)
     y = labels(r).astype(np.float32 if kind != "softmax_xent" else np.int64)
+    jkw, tkw = {}, {}
+    if token_mask is not None:
+        tm = token_mask(r)
+        jkw["token_mask"] = jnp.asarray(tm)
+        tkw["token_mask"] = torch.from_numpy(tm)
     want = np.asarray(jloop.make_loss(kind)(jnp.asarray(logits),
-                                            jnp.asarray(y)))
+                                            jnp.asarray(y), **jkw))
     got = tloop.make_loss(kind)(torch.from_numpy(logits),
-                                torch.from_numpy(y)).numpy()
+                                torch.from_numpy(y), **tkw).numpy()
     assert got.shape == want.shape == (6,)
     np.testing.assert_allclose(got, want, **LOSS_TOL)
+
+
+def test_a_token_mask_that_does_not_tile_the_loss_raises():
+    loss = tloop.make_loss("softmax_xent")
+    with pytest.raises(ValueError, match="does not tile"):
+        loss(torch.zeros(2, 5, 3), torch.zeros(2, 5, dtype=torch.long),
+             token_mask=torch.ones(2, 4))
 
 
 @pytest.mark.parametrize("n,bs", [(20, 8), (16, 8), (3, 5)])

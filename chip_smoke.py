@@ -9,14 +9,17 @@ Phases, each printing JSON lines:
 1. **device** — the card (``nvidia-smi`` name and power limit), the torch
    and CUDA versions, and the build of every kernel source under
    ``mmlspark_tpu_torch/ops/csrc`` (one ``nvcc`` per source, all started
-   together) with the registers and spills ``ptxas`` reports;
+   together) with the registers and spills ``ptxas`` reports and the
+   count of tensor-core instructions (``HMMA``/``HGMMA``, from
+   ``cuobjdump -sass``) in each kernel function; the bf16 flash-attention
+   kernel must have some;
 2. **attention** — the flash-attention kernel against its plain PyTorch
    version on the card, at the shapes the serving path gives it (ViT-B/16
    attention: B in {1, 8, 32}, H=12, T=196, D=64, bf16 and f32, on the
    strided ``[B,T,H,D] → [B,H,T,D]`` view the model passes) and at the
-   edge cases (fully masked rows, causal, ragged T=77, D in {32, 128}),
-   with its time, the plain version's, one PyTorch library call's and the
-   bound;
+   edge cases (fully masked rows, causal, ragged T=77, Tq ≠ Tk, T=1,
+   T=17, D in {32, 128}), with its time with L2 warm and with L2 flushed,
+   the plain version's, one PyTorch library call's and the bound;
 3. **decode_attention** — the decode-attention kernel against its plain
    version at the generation path's geometry (32 slots, H=12, a 1024-token
    f32 cache horizon, D=64, on the strided layer slice of the cache and the
@@ -49,7 +52,9 @@ Phases, each printing JSON lines:
    ``ModelServer(ServeConfig(buckets=(1, 8, 32)))``: concurrent requests
    of 1–20 uint8 224×224×3 images; every answer held against the same rows
    through the plain-attention path on the card; the kernel's launch count
-   over the run must be exactly 12 per forward, warmup included;
+   over the run must be exactly 12 per forward, warmup included; then one
+   forward at B=32 timed by CUDA events and one traced by
+   ``torch.profiler`` (device busy and idle time, K1's share of it);
 8. **train** — ResNet-50 (GroupNorm) at full width trained through
    ``Trainer.fit_arrays`` for 7 steps of 64 rows with on-device
    preprocessing (random 240² window of a 256² uint8 source, bilinear
@@ -115,9 +120,14 @@ DEV = "cuda"
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
 
-# kernel vs plain version: both accumulate in float32 from the same
-# float32 operands (bf16 inputs are upcast exactly); they differ in
-# summation order and in expf against torch.exp
+# flash attention, kernel vs plain version, both accumulating in float32.
+# The f32 instance multiplies the same float32 operands; they differ in
+# summation order and in expf against torch.exp. The bf16 instance runs
+# both products on the tensor cores: each product of two bf16 values is
+# exact in float32, the probabilities are carried as bf16 hi + lo (about
+# 2^-17 of each), the exponentials are ex2.approx, and the sums run in
+# another order; each of these is a few float32 steps of outputs of
+# order 1. Rounding the probabilities to bf16 once would be about 1e-3
 KERNEL_TOL = 1e-4
 
 # served (kernel attention) vs the plain-attention path, on logits: both
@@ -256,16 +266,30 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+# bytes written before each sample of an L2-cold timing: well past the
+# card's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2 ** 20
+_l2_flush = []
+
+
+def time_ms(fn, reps: int = 25, warm: int = 3,
+            flush_l2: bool = False) -> float:
     """Median device time of ``fn`` in ms, from CUDA events around each
     call. A busy-wait kernel ahead of each sample keeps the stream
     backed up, so the events time the device work and not the host's
-    launch gap."""
+    launch gap. ``flush_l2`` writes L2_FLUSH_BYTES before each sample
+    (outside the events), so ``fn`` finds its operands in device memory
+    and not in L2."""
     import torch
+    if flush_l2 and not _l2_flush:
+        _l2_flush.append(torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                     device="cuda"))
     for _ in range(warm):
         fn()
     pairs = []
     for _ in range(reps):
+        if flush_l2:
+            _l2_flush[0].zero_()
         torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -332,6 +356,40 @@ def decode_bound(h, d, lengths, horizon) -> dict:
     return out
 
 
+# the tensor-core instructions of sm_90: warp-level mma and warpgroup mma
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+
+
+def sass_tensor_ops(sass: str) -> dict:
+    """Count the tensor-core instructions of each kernel function in
+    ``cuobjdump -sass`` output: {function: {"HMMA": n, "HGMMA": m}}."""
+    import re
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = dict.fromkeys(TENSOR_CORE_OPS, 0)
+            continue
+        ins = re.search(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if fn and ins and ins.group(1) in TENSOR_CORE_OPS:
+            counts[fn][ins.group(1)] += 1
+    return counts
+
+
+def kernel_tensor_ops(name: str) -> dict:
+    """Tensor-core instruction counts per function of kernel library
+    ``name`` (built), from ``cuobjdump -sass`` beside nvcc."""
+    from mmlspark_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return sass_tensor_ops(sass)
+
+
 def phase_device() -> dict:
     import torch
 
@@ -343,21 +401,28 @@ def phase_device() -> dict:
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
              for name in build_s}
+    tensor_ops = {name: kernel_tensor_ops(name) for name in build_s}
     out = {"phase": "device", "nvidia_smi": card,
            "name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0],
-           "build_wall_s": wall, "build_s": build_s, "ptxas": ptxas}
+           "build_wall_s": wall, "build_s": build_s, "ptxas": ptxas,
+           "tensor_core_ops": tensor_ops}
     emit(out)
+    bf16 = {fn: c for fn, c in tensor_ops["flash_attention"].items()
+            if "flash_fwd_bf16" in fn}
+    check(len(bf16) > 0 and all(sum(c.values()) > 0 for c in bf16.values()),
+          f"the bf16 flash-attention kernel has no tensor-core "
+          f"instructions: {bf16}")
     return out
 
 
-def _attention_inputs(b, h, t, d, dtype, gen, strided):
+def _attention_inputs(b, h, tq, tk, d, dtype, gen, strided):
     import torch
-    shape = (b, t, h, d) if strided else (b, h, t, d)
-    qkv = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-           for _ in range(3)]
+    qkv = [torch.randn((b, t, h, d) if strided else (b, h, t, d),
+                       generator=gen, device="cuda").to(dtype)
+           for t in (tq, tk, tk)]
     # the model's view: [B, T, H, D] projections seen as [B, H, T, D]
     return [x.transpose(1, 2) if strided else x for x in qkv]
 
@@ -389,11 +454,20 @@ def phase_attention() -> dict:
              strided=True, timed=False),
         dict(b=4, h=12, t=196, d=128, dtype=bf16, lens=None, causal=False,
              strided=False, timed=False),
+        dict(b=4, h=12, t=196, d=32, dtype=bf16, lens=None, causal=False,
+             strided=True, timed=False),
+        dict(b=2, h=12, t=196, tq=50, d=64, dtype=bf16, lens=(196, 111),
+             causal=False, strided=True, timed=False),
+        dict(b=3, h=4, t=1, d=64, dtype=bf16, lens=None, causal=False,
+             strided=False, timed=False),
+        dict(b=3, h=4, t=17, d=64, dtype=bf16, lens=(17, 9, 1),
+             causal=True, strided=False, timed=False),
     ]
     worst = 0.0
     main = None
     for c in cases:
-        q, k, v = _attention_inputs(c["b"], c["h"], c["t"], c["d"],
+        tq = c.get("tq", c["t"])
+        q, k, v = _attention_inputs(c["b"], c["h"], tq, c["t"], c["d"],
                                     c["dtype"], gen, c["strided"])
         kv = None
         if c["lens"] is not None:
@@ -410,7 +484,7 @@ def phase_attention() -> dict:
         worst = max(worst, err)
         dtype_name = str(c["dtype"]).replace("torch.", "")
         row = {"phase": "kernel", "kernel": "flash_attention",
-               "B": c["b"], "H": c["h"], "T": c["t"], "D": c["d"],
+               "B": c["b"], "H": c["h"], "Tq": tq, "T": c["t"], "D": c["d"],
                "dtype": dtype_name, "kv_lens": c["lens"],
                "causal": c["causal"], "strided": c["strided"],
                "max_abs_err": err, "tol": KERNEL_TOL}
@@ -422,19 +496,29 @@ def phase_attention() -> dict:
         if c["timed"]:
             keep = fa.mask3(c["b"], c["t"], c["t"], None, False, q.device)
             scale = fa.resolve_scale(None, c["d"])
-            row["ms"] = time_ms(lambda: fa._flash_cuda(q, k, v, keep,
-                                                       scale))
+
+            def kernel():
+                return fa._flash_cuda(q, k, v, keep, scale)
+
+            attn_mask = keep[:, None].bool()
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=attn_mask, scale=scale)
+
+            row["ms"] = time_ms(kernel)
+            row["ms_cold_l2"] = time_ms(kernel, flush_l2=True)
             row["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_reference(q, k, v, keep, scale))
-            attn_mask = keep[:, None].bool()
-            row["library_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=attn_mask, scale=scale))
+            row["library_ms"] = time_ms(library)
+            row["library_ms_cold_l2"] = time_ms(library, flush_l2=True)
             bound_ms, bound_by = attention_bound(
                 c["b"], c["h"], c["t"], c["t"], c["d"], dtype_name)
             row["bound_ms"] = bound_ms
             row["bound_us"] = bound_ms * 1e3
             row["bound_by"] = bound_by
+            row["x_bound"] = row["ms"] / bound_ms
+            row["x_library"] = row["ms"] / row["library_ms"]
             if c["b"] == max(SERVE_BUCKETS) and c["dtype"] == bf16:
                 main = row
         emit(row)
@@ -662,6 +746,43 @@ def _set_attention_impl(module, impl: str) -> None:
             m.impl = impl
 
 
+def _vit_forward_profile(model, x) -> dict:
+    """One ViT forward at ``x``'s batch under ``torch.profiler``, after a
+    warm one: host wall (synchronised), the device's busy time and its
+    idle share of the wall, K1's kernels (time and count) and their share
+    of the busy time, and the busiest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.device_forward(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.device_forward(x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        model.device_forward(x)
+        torch.cuda.synchronize()
+    device = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in device)
+    k1 = [(ms, n) for key, ms, n in device if "flash_fwd" in key]
+    k1_ms = sum(ms for ms, _ in k1)
+    k1_calls = sum(n for _, n in k1)
+    check(k1_calls == 12, f"{k1_calls} K1 kernels in one profiled forward, "
+                          "expected 12")
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share_of_wall": 1 - busy / wall,
+            "flash_attention_ms": k1_ms, "flash_attention_launches": k1_calls,
+            "flash_attention_share_of_busy": k1_ms / busy,
+            "kernels_launched": sum(n for _, _, n in device),
+            "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                            sorted(device, key=lambda d: -d[1])[:8]]}
+
+
 def phase_serve(card: str, kernel_ms: float | None) -> int:
     """Serve full-width ViT-B/16; returns the kernel launches of the
     run. ``kernel_ms`` is the kernel's time at the largest bucket (when
@@ -734,9 +855,16 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
           f"serving stats {snap}")
 
     # one forward at the largest bucket, timed on the device, with the
-    # kernel and then with the plain attention
+    # kernel and then with the plain attention; and one traced, with the
+    # kernel (the events around a forward also see the host's launch gaps
+    # once it has more launches to make than the busy-wait covers)
     x = torch.from_numpy(images[:max(SERVE_BUCKETS)]).cuda()
     forward_ms = time_ms(lambda: model.device_forward(x), reps=20)
+    launched = fa.launches
+    profiled = _vit_forward_profile(model, x)
+    check(fa.launches == launched + 36,
+          "the three forwards of the profile did not launch K1 12 times "
+          "each")
 
     # the same rows through the same weights with the plain attention
     _set_attention_impl(bundle.module, "flash_torch")
@@ -771,6 +899,7 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
                          "attention_kernel_share":
                          None if kernel_ms is None
                          else 12 * kernel_ms / forward_ms},
+          "forward_profile": profiled,
           "max_abs_err_vs_plain_attention": worst,
           "logit_max_abs": float(np.abs(ref).max()), "tol": SERVE_TOL,
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
@@ -1819,7 +1948,8 @@ def main() -> int:
                 "source": "mmlspark_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": "mmlspark_tpu/ops/pallas/attention.py:183",
                 "launches": launches, "max_abs_err": attn["max_abs_err"],
-                "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+                "ms": attn["ms"], "ms_cold_l2": attn["ms_cold_l2"],
+                "plain_ms": attn["plain_ms"],
                 "bound_ms": attn["bound_ms"], "bound_by": attn["bound_by"],
                 "library_ms": attn["library_ms"]})
     dec = (phase_decode_attention() if "decode_attention" in phases

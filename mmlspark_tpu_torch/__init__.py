@@ -12,11 +12,12 @@ is a CUDA C++ kernel written for Hopper (``ops/csrc``), with its plain
 PyTorch version beside it; a CPU tensor takes the plain version, a CUDA
 tensor the kernel.
 
-Three paths are ported so far:
+Four paths are ported so far:
 
 * serving ViT-B/16 through :class:`ModelServer`: ``ModelServer.add_model``
   → ``DynamicBatcher`` → ``core.plan`` → ``TorchModel`` forward, with
-  ``ops.attention.flash_attention`` as the hand-written CUDA kernel;
+  ``ops.attention.flash_attention`` as the hand-written CUDA kernel (its
+  bf16 instance on the tensor cores);
 * training the GroupNorm ResNet-50 on one device: ``Trainer.fit_arrays``
   → ``DeviceLoader`` → one step (``DevicePreprocess`` with
   ``ops.resize.fused_resize_norm``, the forward with
@@ -26,7 +27,12 @@ Three paths are ported so far:
   ``ModelServer.add_generator`` → ``GenerateBatcher`` (continuous batching
   over a slot-major KV cache) → the causal ``TransformerTagger``, whose
   decode step attends through ``ops.attention.decode_attention``, a
-  hand-written CUDA kernel.
+  hand-written CUDA kernel;
+* sequence-parallel training of the causal ``TransformerTagger``:
+  ``Trainer(model, TrainConfig(mesh_spec={"sp": 4})).fit_arrays`` → the
+  model's ``mesh_hooks`` → ``parallel.ring_attention`` over the ``sp``
+  virtual ranks of a mesh on one card, every hop of every layer one
+  ``ops.attention.attention_block_update``, a hand-written CUDA kernel.
 
 ROADMAP.md lists the slices still to come.
 """

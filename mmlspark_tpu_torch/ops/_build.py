@@ -73,11 +73,16 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` for this source hash lives."""
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
 def _compile(name: str) -> Path:
     """Compile ``name`` unless the library for this source hash exists;
     returns its path. Writes to a temporary name and renames, so a
     concurrent build never loads a half-written library."""
-    lib = BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+    lib = library_path(name)
     if lib.exists():
         _logs.setdefault(name, "(cached build)")
         _build_s.setdefault(name, 0.0)

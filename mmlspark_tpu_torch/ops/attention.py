@@ -27,7 +27,12 @@ The kernel supports head widths ``D <= 128`` with ``D % 8 == 0``; the
 wrapper raises on any other ``D``, on another dtype, on operands on
 different devices, and on operands whose last axis is not contiguous (the
 kernel takes batch/head/token strides, so the ``[B,T,H,D] → [B,H,T,D]``
-transpose of the projections needs no copy).
+transpose of the projections needs no copy). The bf16 instance runs on
+the tensor cores and copies 16 bytes at a time, so for bf16 operands it
+also raises unless every base pointer is 16-byte aligned and every
+batch/head/token stride is a multiple of 8 elements
+(:func:`check_kernel_layout`); it never copies to fix a layout. The f32
+instance takes any such strides.
 
 Decode attention is the port of
 ``mmlspark_tpu/ops/pallas/attention.py:decode_attention`` (the Pallas kernel
@@ -210,15 +215,41 @@ def _kernel_fn():
     return fn
 
 
-def _flash_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
-    """Launch the kernel on the current stream; the output is allocated
-    here, the kernel allocates nothing."""
-    global launches
+def _kernel_strides(t: torch.Tensor) -> list[int]:
+    """The batch/head/token strides the kernel indexes with; an axis of
+    size 1 is only ever read at index 0, so its stride (which PyTorch
+    leaves arbitrary) is passed as 0."""
+    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+
+
+def check_kernel_layout(q, k, v) -> None:
+    """Raise unless the kernel can read ``q``/``k``/``v`` as they lie: a
+    contiguous last axis for both instances, and for bfloat16 (whose
+    instance copies 16 bytes at a time) 16-byte aligned base pointers and
+    batch/head/token strides in multiples of 8 elements. Nothing is
+    copied to make a layout fit."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(
                 f"{name} must have a contiguous last axis (the kernel takes "
                 f"batch/head/token strides); got strides {t.stride()}")
+        if t.dtype != torch.bfloat16:
+            continue
+        strides = _kernel_strides(t)
+        if t.data_ptr() % 16 or any(s % 8 for s in strides):
+            raise ValueError(
+                f"{name} is misaligned for the bf16 kernel's 16-byte "
+                f"copies: it needs a 16-byte aligned base and batch/head/"
+                f"token strides in multiples of 8 elements; got base "
+                f"offset {t.data_ptr() % 16} bytes and strides "
+                f"{t.stride()}")
+
+
+def _flash_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
+    """Launch the kernel on the current stream; the output is allocated
+    here, the kernel allocates nothing."""
+    global launches
+    check_kernel_layout(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     fn = _kernel_fn()
@@ -229,7 +260,8 @@ def _flash_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
             launches += 1
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(),
                  out.data_ptr(), _DTYPES[q.dtype], b, h, tq, tk, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *_kernel_strides(q), *_kernel_strides(k),
+                 *_kernel_strides(v),
                  scale, stream)
     if err != 0:
         raise RuntimeError(

@@ -14,7 +14,10 @@ order of the two products. bfloat16 inputs are rounded identically on
 both sides and upcast exactly, so they take the same tolerance.
 
 The CUDA kernel itself runs only on a card: its test is marked ``cuda``
-and skips here.
+and skips here. What the card's bf16 instance does to the numbers is
+emulated here in plain PyTorch (bf16 products accumulated in f32, P split
+into bf16 hi + lo before P·V) and held against the JAX package's numpy
+oracle, and the wrapper's layout checks run on CPU tensors.
 """
 
 import numpy as np
@@ -138,23 +141,190 @@ def test_cuda_impl_on_cpu_tensors_raises_and_launches_nothing():
     assert ta.launches == before
 
 
+# ---- the bf16 kernel's arithmetic, emulated on the CPU ----
+
+# the kernel's key stripe (ops/csrc/flash_attention.cu, BK)
+_KERNEL_STRIPE = 64
+
+
+def _bf16_parts(p: torch.Tensor):
+    """``p`` (f32) as the kernel splits it: ``p_hi = bf16(p)``,
+    ``p_lo = bf16(p - p_hi)``, both returned in f32."""
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def _emulate_bf16_kernel(q, k, v, keep, scale, split_p: bool):
+    """The bf16 kernel's recurrence in plain PyTorch: bf16 q/k/v (upcast
+    exactly), q·k accumulated in f32 and then scaled, 64-key stripes of
+    the online softmax with its -inf guards, and P·V with P rounded to
+    bf16 either once or as hi + lo (``split_p``), accumulated in f32."""
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    b, h, tq, d = q.shape
+    m = torch.full((b, h, tq, 1), float("-inf"))
+    denom = torch.zeros((b, h, tq, 1))
+    acc = torch.zeros((b, h, tq, d))
+    neg_inf = torch.tensor(float("-inf"))
+    keep = keep[:, None] != 0
+    for k0 in range(0, k.shape[2], _KERNEL_STRIPE):
+        ks = k[:, :, k0:k0 + _KERNEL_STRIPE]
+        vs = v[:, :, k0:k0 + _KERNEL_STRIPE]
+        s = torch.where(keep[..., k0:k0 + _KERNEL_STRIPE],
+                        (q @ ks.transpose(-1, -2)) * scale, neg_inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_new),
+                           torch.zeros(()))
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_new),
+                        torch.zeros(()))
+        hi, lo = _bf16_parts(p)
+        pv = hi @ vs + lo @ vs if split_p else hi @ vs
+        acc = acc * corr + pv
+        denom = denom * corr + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return acc / torch.clamp(denom, min=1e-30)
+
+
+# name → (B, H, Tq, Tk, D, kv lengths or None, causal): the ViT-B/16 head
+# shape (T=196: three full stripes and one of 4 keys), with pads and a
+# fully masked row, and Tq != Tk
+_EMULATED = {
+    "vit_head": (2, 2, 196, 196, 64, None, False),
+    "pads_and_dead_row": (3, 2, 196, 196, 64, (196, 0, 77), False),
+    "causal_tq_ne_tk": (2, 2, 50, 196, 64, (196, 130), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_EMULATED))
+def test_bf16_kernel_precision_scheme_against_jax_oracle(case):
+    """The scheme the bf16 kernel runs on the tensor cores meets the card
+    test's 1e-4 against the JAX package's numpy oracle: products of bf16
+    values are exact in f32, and P carried as bf16 hi + lo is good to
+    about 2^-17. Rounding P to bf16 once (2^-9) lands at least 10x
+    farther, which is why the kernel issues two P·V products."""
+    fa = _jax_fa()
+    b, h, tq, tk, d, lens, causal = _EMULATED[case]
+    r = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(r.normal(size=(b, h, t, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for t in (tq, tk, tk))
+    mask = None if lens is None else \
+        np.arange(tk)[None, :] < np.asarray(lens)[:, None]
+    m3 = fa.host_mask3(b, tq, tk, mask, causal)
+    scale = ta.resolve_scale(None, d)
+    want = fa.flash_attention_host(q.float().numpy(), k.float().numpy(),
+                                   v.float().numpy(), m3, scale)
+    keep = torch.from_numpy(m3)
+    split = _emulate_bf16_kernel(q, k, v, keep, scale, split_p=True)
+    once = _emulate_bf16_kernel(q, k, v, keep, scale, split_p=False)
+    err_split = float(np.abs(split.numpy() - want).max())
+    err_once = float(np.abs(once.numpy() - want).max())
+    assert err_split <= 1e-4, err_split
+    assert err_once >= 10 * err_split, (err_once, err_split)
+    if lens is not None and 0 in lens:
+        assert (split[lens.index(0)] == 0).all()
+
+
+# ---- the wrapper's layout checks (run before any kernel is built) ----
+
+def _vit_view(b=2, t=196, h=12, d=64, dtype=torch.bfloat16, pad=0,
+              offset=0):
+    """q/k/v as the ViT passes them: a [B, T, H, D] projection seen as
+    [B, H, T, D]; ``pad`` widens each token's row, ``offset`` shifts the
+    base pointer by that many elements."""
+    base = torch.zeros(b * t * (h * d + pad) + offset, dtype=dtype)
+    x = base[offset:].view(b, t, h * d + pad)[..., :h * d]
+    return x.view(b, t, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layout_check_accepts_the_vit_view(dtype):
+    q = _vit_view(dtype=dtype)
+    assert q.stride() == (196 * 768, 64, 768, 1)
+    ta.check_kernel_layout(q, q, q)
+
+
+# name → (pad, offset): what a 16-byte copy cannot read
+_MISALIGNED = {
+    "token_stride_not_8": (4, 0),     # token stride 772
+    "base_not_16_bytes": (0, 3),      # base 6 bytes past an aligned one
+    "odd_token_stride": (1, 0),       # token stride 769
+}
+
+
+@pytest.mark.parametrize("case", sorted(_MISALIGNED))
+def test_bf16_misaligned_layout_raises_before_any_launch(case):
+    pad, offset = _MISALIGNED[case]
+    bad = _vit_view(pad=pad, offset=offset)
+    good = _vit_view()
+    before = ta.launches
+    with pytest.raises(ValueError, match="misaligned"):
+        ta.check_kernel_layout(good, bad, good)
+    keep = ta.mask3(2, 196, 196, None, False, bad.device)
+    # the wrapper checks before it builds or launches anything
+    with pytest.raises(ValueError, match="misaligned"):
+        ta._flash_cuda(bad, good, good, keep, 0.125)
+    assert ta.launches == before
+
+
+def test_f32_instance_takes_any_strides():
+    """The f32 instance reads element by element: only the last axis has
+    to be contiguous."""
+    ta.check_kernel_layout(*[_vit_view(dtype=torch.float32, pad=1,
+                                       offset=3)] * 3)
+    bad = _vit_view(dtype=torch.float32).transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous last axis"):
+        ta.check_kernel_layout(bad, bad, bad)
+
+
+def test_size_one_axes_strides_are_not_read():
+    """A batch or head axis of size 1 is read only at index 0, so its
+    (arbitrary) stride is passed as 0 and never fails the check."""
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16).as_strided(
+        (1, 1, 8, 64), (3, 5, 64, 1))
+    assert ta._kernel_strides(q) == [0, 0, 64]
+    ta.check_kernel_layout(q, q, q)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The CUDA kernel against its plain version on the card, at the
-    ViT-B/16 attention shape and the edge cases. Tolerance 1e-4: both
-    accumulate in float32 from the same float32 operands, and differ in
-    summation order and in ``expf`` against ``torch.exp``."""
+    ViT-B/16 attention shape and the edge cases. Tolerance 1e-4 (the
+    values of PR 2's kernel test, unchanged). The f32 instance and the
+    plain version accumulate in f32 from the same operands and differ in
+    summation order and in ``expf`` against ``torch.exp``. The bf16
+    instance runs both products on the tensor cores: each product of two
+    bf16 values is exact in f32, P is carried as bf16 hi + lo (about
+    2^-17 of each probability), the exponentials are ``ex2.approx``, and
+    the sums run in another order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    shapes = [(8, 12, 196, 196, 64, torch.bfloat16, None, False),
-              (2, 12, 196, 196, 64, torch.float32, None, False),
-              (2, 3, 77, 77, 32, torch.float32, (77, 0), False),
-              (2, 3, 130, 130, 128, torch.bfloat16, (130, 64), True)]
-    for b, h, tq, tk, d, dtype, lens, causal in shapes:
-        q, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev)
-                   .to(dtype) for t in (tq, tk, tk))
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, H, Tq, Tk, D, dtype, kv lengths or None, causal, strided view)
+    shapes = [(8, 12, 196, 196, 64, bf16, None, False, False),
+              (2, 12, 196, 196, 64, f32, None, False, False),
+              (2, 3, 77, 77, 32, f32, (77, 0), False, False),
+              (2, 3, 130, 130, 128, bf16, (130, 64), True, False),
+              # the ViT serving shape, on the model's strided view
+              (32, 12, 196, 196, 64, bf16, None, False, True),
+              (2, 12, 50, 196, 64, bf16, (196, 111), False, True),
+              (3, 4, 1, 1, 64, bf16, None, False, False),
+              (3, 4, 17, 17, 64, bf16, (17, 9, 1), True, False),
+              # a fully masked row: exact zeros
+              (4, 12, 196, 196, 64, bf16, (196, 0, 100, 1), False, True),
+              (4, 8, 77, 77, 64, bf16, (77, 40, 77, 3), True, False),
+              (4, 12, 196, 196, 32, bf16, None, False, True),
+              (4, 12, 196, 196, 128, bf16, (196, 5, 60, 196), True, False)]
+    for b, h, tq, tk, d, dtype, lens, causal, strided in shapes:
+        def make(t):
+            if strided:
+                x = torch.randn(b, t, h, d, generator=gen, device=dev)
+                return x.to(dtype).transpose(1, 2)
+            return torch.randn(b, h, t, d, generator=gen,
+                               device=dev).to(dtype)
+        q, k, v = make(tq), make(tk), make(tk)
         kv = None if lens is None else (
             torch.arange(tk, device=dev)[None, :]
             < torch.tensor(lens, device=dev)[:, None])
@@ -165,3 +335,5 @@ def test_cuda_kernel_matches_plain_version():
         want = ta.flash_attention(q, k, v, kv_mask=kv, causal=causal,
                                   impl="torch")
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        if lens is not None and 0 in lens:
+            assert bool((got[lens.index(0)] == 0).all())

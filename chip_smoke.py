@@ -41,8 +41,15 @@ Phases, each printing JSON lines:
    12 distinct GroupNorm shapes of ResNet-50 at 224² (N=64, bf16 and f32,
    with and without the fused ReLU as the network uses it) and at the
    edge cases (mean 200 / spread 0.02, C=64 in 32 groups, a ragged H·W,
-   N=1); per shape in bf16 its time, the plain version's, ``F.group_norm``'s
-   and the bound, and their sums over the 53 sites of one forward;
+   C=96, N=1, a base pointer off 16 bytes, an f32 sample past the
+   largest cluster); every case launched twice and equal bit for bit,
+   with the body it took (the cluster body with its plan and the
+   clusters the card holds at once, or the tiled body); every bf16 site
+   of ResNet-50 must take the cluster body; per shape in bf16
+   its time with L2 warm and flushed, the plain version's,
+   ``F.group_norm``'s and the bound, and their sums over the 53 sites of
+   one forward; and, for scale, one launch's time by the same timing (a
+   one-element fill);
 6. **resize** — the fused crop → resize → scale kernel against its plain
    version at the training geometry (N=64, 256² source, 240² window,
    224² out, C=3, offsets at 0, at the maximum and out of range) and at
@@ -63,7 +70,9 @@ Phases, each printing JSON lines:
    step; the first step held against the same weights, batch and draws
    through the plain versions, in float32 and in bf16; then one step
    split by CUDA events and traced by ``torch.profiler`` (device busy
-   and idle time, the kernels' and the GroupNorm backward's share);
+   and idle time, the kernels' and the GroupNorm backward's share; the
+   traced step must hold exactly 53 GroupNorm forward kernels, one a
+   site);
 9. **block_update** — the ring-hop block-update kernel against its plain
    version at every hop of a ring over the sequence-parallel training
    geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the first
@@ -154,6 +163,9 @@ GN_TOL_BF16_REL = 2.0 ** -7
 # operations per element of one GroupNorm call: the sum, the centred
 # square (sub, mul, add), the normalise (sub, mul, FMA) and the ReLU
 GN_OPS_PER_ELEMENT = 9
+# the GroupNorm forward kernels' names in a profiler trace: the cluster
+# body (one launch a call) and the tiled body (three)
+GN_KERNEL_NAMES = ("gn_cluster", "gn_tile_stats", "gn_merge", "gn_apply")
 
 # the resize kernel runs the plain version's float32 operations in the
 # same order, each rounded on its own (no FMA): equal bit for bit
@@ -549,16 +561,47 @@ def resnet50_gn_sites() -> list[tuple]:
     return sites
 
 
-def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0):
+def _gn_body(x, groups) -> dict:
+    """The body the GroupNorm kernel takes for ``x``: the cluster plan and
+    how many such clusters the card holds at once, or the tiled body."""
     import torch
 
     from mmlspark_tpu_torch.ops import group_norm as gn
-    x = (center + spread * torch.randn(shape, generator=gen,
+    n, h, w, c = x.shape
+    with torch.cuda.device(x.device):
+        cp = gn._device_plan(n, h * w, c, x.dtype, groups,
+                             gn._pointer_align(x), x.device.index)
+    if cp is None:
+        return {"body": "tiled"}
+    return {"body": "cluster", "plan": cp,
+            "clusters_resident": gn.cluster_occupancy(x.dtype, cp)}
+
+
+def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0,
+             offset=0):
+    """One GroupNorm case: the kernel launched twice on the same input
+    (equal bit for bit) against the plain version. ``offset`` elements
+    shift x's base pointer off its allocation's alignment."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    numel = int(np.prod(shape))
+    x = (center + spread * torch.randn(numel + offset, generator=gen,
                                        device="cuda")).to(dtype)
+    x = x[offset:].view(shape)
     scale = torch.randn(shape[-1], generator=gen, device="cuda")
     bias = torch.randn(shape[-1], generator=gen, device="cuda")
+    body = _gn_body(x, groups)
+    before = gn.cluster_launches
     got = gn.group_norm(x, scale, bias, groups, relu=relu)
+    again = gn.group_norm(x, scale, bias, groups, relu=relu)
     torch.cuda.synchronize()
+    clustered = gn.cluster_launches - before
+    check(clustered == (2 if body["body"] == "cluster" else 0),
+          f"{clustered} cluster launches of 2 for {shape} {dtype}, "
+          f"expected the {body['body']} body")
+    repeat = bool(torch.equal(got, again))
+    check(repeat, f"two launches on the same input differ: {shape} {dtype}")
     want = gn.group_norm(x, scale, bias, groups, relu=relu, impl="torch")
     check(got.dtype == dtype and got.shape == want.shape,
           f"kernel output {got.dtype} {tuple(got.shape)}")
@@ -575,13 +618,16 @@ def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0):
     row = {"phase": "kernel", "kernel": "group_norm", "shape": list(shape),
            "groups": groups, "relu": relu,
            "dtype": str(dtype).replace("torch.", ""), "center": center,
-           "spread": spread, "max_abs_err": float(diff.max()), "tol": tol}
+           "spread": spread, "storage_offset": offset, **body,
+           "bitwise_repeat": repeat, "max_abs_err": float(diff.max()),
+           "tol": tol}
     return row, ok, (x, scale, bias)
 
 
 def phase_group_norm() -> dict:
     """The GroupNorm kernel against its plain version at every ResNet-50
-    shape and the edge cases; times at N=64 bf16. Returns the per-forward
+    shape and the edge cases; times at N=64 bf16 (L2 warm and flushed).
+    Every bf16 site must take the cluster body. Returns the per-forward
     sums over the 53 sites and the largest error."""
     import torch
     import torch.nn.functional as F
@@ -607,11 +653,19 @@ def phase_group_norm() -> dict:
                     (n,) + hwc, groups, relu, dtype, gen)
                 worst = max(worst, row["max_abs_err"])
                 row["sites"] = entry["sites"]
+                if dtype == torch.bfloat16:
+                    check(row["body"] == "cluster",
+                          f"a ResNet-50 bf16 site took the {row['body']} "
+                          f"body, not the cluster body: {row}")
                 timed = dtype == torch.bfloat16 and (hwc, groups) \
                     not in per_shape
                 if timed:
                     row["ms"] = time_ms(lambda: gn._group_norm_cuda(
                         x, scale, bias, groups, gn.DEFAULT_EPS, relu))
+                    row["ms_cold_l2"] = time_ms(
+                        lambda: gn._group_norm_cuda(
+                            x, scale, bias, groups, gn.DEFAULT_EPS, relu),
+                        flush_l2=True)
                     row["plain_ms"] = time_ms(
                         lambda: gn.group_norm_reference(x, scale, bias,
                                                         groups, relu=relu))
@@ -637,29 +691,40 @@ def phase_group_norm() -> dict:
                 check(ok, f"group_norm kernel differs from its plain "
                           f"version past tolerance on {row}")
                 del x, scale, bias
-    edge = [((4, 28, 28, 256), 32, True, torch.float32, 200.0, 0.02),
-            ((2, 9, 9, 64), 32, True, torch.bfloat16, 0.0, 1.0),
-            ((n, 13, 11, 96), 32, False, torch.bfloat16, 0.0, 1.0),
-            ((n, 7, 7, 2048), 32, True, torch.float32, 0.0, 1.0),
-            ((1, 56, 56, 256), 32, True, torch.bfloat16, 0.0, 1.0),
-            ((1, 7, 7, 512), 32, False, torch.float32, 0.0, 1.0)]
-    for shape, groups, relu, dtype, center, spread in edge:
+    edge = [((4, 28, 28, 256), 32, True, torch.float32, 200.0, 0.02, 0),
+            ((2, 9, 9, 64), 32, True, torch.bfloat16, 0.0, 1.0, 0),
+            ((n, 13, 11, 96), 32, False, torch.bfloat16, 0.0, 1.0, 0),
+            ((n, 7, 7, 2048), 32, True, torch.float32, 0.0, 1.0, 0),
+            ((1, 56, 56, 256), 32, True, torch.bfloat16, 0.0, 1.0, 0),
+            ((1, 7, 7, 512), 32, False, torch.float32, 0.0, 1.0, 0),
+            ((n, 14, 14, 256), 32, True, torch.bfloat16, 0.0, 1.0, 1),
+            ((n, 28, 28, 128), 32, False, torch.float32, 0.0, 1.0, 1),
+            ((4, 112, 112, 128), 32, True, torch.float32, 0.0, 1.0, 0)]
+    for shape, groups, relu, dtype, center, spread, offset in edge:
         row, ok, _ = _gn_case(shape, groups, relu, dtype, gen, center,
-                              spread)
+                              spread, offset)
         worst = max(worst, row["max_abs_err"])
         row["edge"] = True
         emit(row)
         check(ok, f"group_norm kernel differs from its plain version past "
                   f"tolerance on {row}")
     total = {key: sum(r[key] * r["sites"] for r in per_shape.values())
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "backward_ms")}
+             for key in ("ms", "ms_cold_l2", "plain_ms", "library_ms",
+                         "bound_ms", "backward_ms")}
+    # what one launch costs by the same timing: a one-element fill
+    one = torch.empty(1, device="cuda")
+    launch_floor = time_ms(one.zero_)
     out = {"phase": "kernel", "kernel": "group_norm",
            "per_forward": "sum over the 53 sites of one ResNet-50 "
                           "forward, N=64, bf16",
+           "launch_floor_ms": launch_floor,
            "distinct_shapes": len(per_shape),
            "elements_per_sample": sum(int(np.prod(s[0])) for s in sites),
            **total, "x_bound": total["ms"] / total["bound_ms"],
+           "x_bound_cold_l2": total["ms_cold_l2"] / total["bound_ms"],
+           "cuda_launches_per_forward": sum(
+               r["sites"] * (1 if r["body"] == "cluster" else 3)
+               for r in per_shape.values()),
            "max_abs_err": worst}
     emit(out)
     return {**total, "bound_by": "bytes", "max_abs_err": worst}
@@ -1289,18 +1354,22 @@ def _step_breakdown(batch) -> dict:
               if e.device_type == DeviceType.CUDA and e.key != gn_bwd
               and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in device)
+    gn_fwd = [(ms, count) for key, ms, count in device
+              if any(k in key for k in GN_KERNEL_NAMES)]
     out["profile"] = {
         "device_busy": busy,
         "device_idle_share_of_wall": 1 - busy / out["wall"],
-        "group_norm_forward_kernels": sum(
-            ms for key, ms, _ in device
-            if any(k in key for k in ("gn_tile_stats", "gn_merge",
-                                      "gn_apply"))),
+        "group_norm_forward_kernels": sum(ms for ms, _ in gn_fwd),
+        "group_norm_forward_kernel_launches": sum(c for _, c in gn_fwd),
         "group_norm_backward": marked[0].device_time_total / 1e3,
         "resize_kernel": sum(ms for key, ms, _ in device
                              if "resize_kernel" in key),
         "top_kernels": [[key[:80], ms, n] for key, ms, n in
                         sorted(device, key=lambda d: -d[1])[:8]]}
+    check(out["profile"]["group_norm_forward_kernel_launches"]
+          == GN_SITES_RESNET50,
+          f"{out['profile']['group_norm_forward_kernel_launches']} GroupNorm "
+          "forward kernels in the profiled step, expected one a site (53)")
     del trainer, module
     return out
 
@@ -1979,6 +2048,7 @@ def main() -> int:
                 "replaces": "mmlspark_tpu/ops/group_norm.py:95",
                 "launches": launches["group_norm"],
                 "max_abs_err": gn["max_abs_err"], "ms": gn["ms"],
+                "ms_cold_l2": gn["ms_cold_l2"],
                 "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
                 "bound_by": gn["bound_by"], "library_ms": gn["library_ms"]})
         if rs:

@@ -8,11 +8,54 @@
 // ((x - mean) * rstd) * scale[c] + bias[c], an optional ReLU, and a
 // round-to-nearest cast to the input type.
 //
-// The Pallas kernel holds a whole sample's (H*W, C) block in VMEM (up to
-// 1.6 MB at 112x112x64 or 56x56x256 in bf16). A Hopper block has at most
-// 227 KB of shared memory, and blocks run in parallel, so the work is cut
-// in three launches on one stream:
+// What bounds it on an H100: one read of x and one write of the output
+// (4 bytes an element in bf16), memory at 3.35 TB/s; the arithmetic is a
+// few operations an element.
 //
+// Two bodies, chosen by shape in ops/group_norm.py (cluster_plan):
+//
+// gn_cluster: one launch per call, one thread-block cluster per sample.
+//   The Pallas kernel holds a whole sample's (H*W, C) block in VMEM and
+//   reads it from HBM once. A Hopper block has at most 227 KB of shared
+//   memory, but a cluster of k CTAs on neighbouring SMs (k <= 8
+//   portable, 16 where the card's occupancy query holds such clusters)
+//   can hold a sample of up to k * 227 KB and read each other's shared
+//   memory: that is the counterpart here. CTA q of a cluster
+//   holds rows [q*R, min((q+1)*R, H*W)) of its sample (the last slab
+//   ragged), copied from device memory once with cp.async in four chunks
+//   of rows (16-byte copies where C*elt and the data pointers allow, else
+//   8, 4 or 2 bytes); the first pass over a chunk overlaps the copies of
+//   the next. Every later pass reads shared memory, and the output is
+//   stored in vectors of the same width.
+//   The order of every sum is fixed, with no atomics, so a launch gives
+//   the same bits every time:
+//     1. each thread keeps the same vector of VEC channels (8 bf16 or 4
+//        f32 at 16 bytes) and sums its rows (row stride rt) in row order,
+//        folding its channels into the group segments its vector holds
+//        (a whole vector of one group, cg channels of one group, or
+//        single channels), then the row threads in order, then a group's
+//        segments in order: the CTA's partial sum per group;
+//     2. cluster.sync(); every CTA reads all k partials over distributed
+//        shared memory in rank order, so every CTA holds the same group
+//        means m;
+//     3. the same order gives sum(x - m) and sum((x - m)^2), exchanged
+//        the same way: mean = m + sum(x - m)/n and
+//        var = sum((x - m)^2)/n - (sum(x - m)/n)^2. This is the JAX
+//        kernel's order (the mean, then the centred squares) with the
+//        mean's own rounding corrected in the second pass, which keeps
+//        mean 200 / spread 0.02 at the f32 step of the mean;
+//     4. normalise from shared memory, store, and a last cluster.sync()
+//        so that no CTA exits while another still reads its partials.
+//   The wrapper picks k from the card's occupancy query (the fewest
+//   waves of clusters, then enough CTAs to reach most SMs, then slabs
+//   small enough for two CTAs an SM); 256 threads a CTA. The launch goes
+//   through cudaLaunchKernelEx with the cluster dimension, after
+//   cudaOccupancyMaxActiveClusters has shown that at least one such
+//   cluster fits on the card.
+//
+// The tiled body, three launches (gn_tile_stats, gn_merge, gn_apply), taken
+//   where one sample does not fit the largest cluster's shared memory
+//   (past 16 * 227 KB, such as f32 at 112x112x128: 6.4 MB a sample):
 //   1. gn_tile_stats: grid (tile, sample). A block reads its tile of rows
 //      [r0, r0 + tile_rows) x C coalesced, neighbouring threads on
 //      neighbouring channels, and forms per-group (mean, M2) of the tile
@@ -20,31 +63,29 @@
 //      mean (the second pass re-reads the tile, mostly from L1/L2).
 //   2. gn_merge: one warp per (sample, group) merges the tiles' partials
 //      with Chan's formula, lanes over tiles in a fixed order and then a
-//      fixed shuffle tree, into (mean, rstd). No float atomics: the
-//      result is the same on every run.
+//      fixed shuffle tree, into (mean, rstd). No float atomics.
 //   3. gn_apply: grid (block, sample); a block builds a table of
 //      (mean, rstd, scale, bias) per channel in shared memory and
 //      normalises its strided share of the sample's elements.
+//   It reads x two or three times with 2- or 4-byte loads a thread; the
+//   caller passes f32 scratch for the partials [N, ntiles, G, 2] and the
+//   statistics [N, G, 2].
 //
-// The variance stays centred: the one-pass E[x^2] - E[x]^2 is pure noise
-// at mean 200 and spread 0.02 (ops/group_norm.py:68-75 of the JAX
-// package); a tile's partial is centred on its own mean and Chan's merge
-// keeps it so.
+// The variance stays centred in both bodies: the one-pass
+// E[x^2] - E[x]^2 is pure noise at mean 200 and spread 0.02
+// (ops/group_norm.py:68-75 of the JAX package).
 //
-// What bounds it on an H100: one read of x and one write of the output
-// (4 bytes an element in bf16), memory at 3.35 TB/s; the arithmetic is a
-// few operations an element. This design reads x two or three times
-// (the statistics' two passes, the second often from L2, and the
-// normalise pass), with 2- or 4-byte loads a thread, so it is expected
-// at 1.5 to 2.5 times its bound.
-//
-// The kernel allocates nothing: the caller passes the output, the
-// partials [N, ntiles, G, 2] and the statistics [N, G, 2] (f32 scratch)
-// and the stream.
+// Neither body allocates: the caller passes the output (and the scratch
+// of the three-launch body) and the stream. Every entry point returns a
+// cudaError_t (0 = launched).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -261,4 +302,458 @@ extern "C" int group_norm_fwd(const void* x, const float* scale,
   return launch<float>(x, scale, bias, y, part, stats, N, HW, C, G,
                        tile_rows, ntiles, ct, rt, apply_blocks, threads,
                        relu, eps, s);
+}
+
+namespace {
+
+// ---------------------------------------------------------------------
+// The cluster body
+// ---------------------------------------------------------------------
+
+namespace cgrp = cooperative_groups;
+
+// 227 KB, the most dynamic shared memory a block may take on sm_90
+constexpr int kMaxSmem = 232448;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxCluster = 16;
+constexpr int kChunks = 4;
+
+template <int B> struct Word;
+template <> struct Word<16> { using type = uint4; };
+template <> struct Word<8> { using type = uint2; };
+template <> struct Word<4> { using type = unsigned int; };
+template <> struct Word<2> { using type = unsigned short; };
+
+__device__ __forceinline__ unsigned lane32(uint4 w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+__device__ __forceinline__ unsigned lane32(uint2 w, int i) {
+  return i == 0 ? w.x : w.y;
+}
+__device__ __forceinline__ unsigned lane32(unsigned w, int) { return w; }
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the B / sizeof(T) elements of one word, as floats
+template <typename T, int B>
+__device__ __forceinline__ void unpack(typename Word<B>::type w, float* f) {
+  constexpr int VEC = B / (int)sizeof(T);
+  if constexpr (B == 2) {
+    f[0] = __uint_as_float((unsigned)w << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if constexpr (sizeof(T) == 4) {
+        f[j] = __uint_as_float(lane32(w, j));
+      } else {
+        const unsigned u = lane32(w, j >> 1);
+        f[j] = __uint_as_float((j & 1) ? (u & 0xffff0000u) : (u << 16));
+      }
+    }
+  }
+}
+
+// B / sizeof(T) floats rounded to nearest into one word of T
+template <typename T, int B>
+__device__ __forceinline__ typename Word<B>::type pack(const float* f) {
+  if constexpr (B == 2) {
+    return (unsigned short)bf16_bits(f[0]);
+  } else {
+    constexpr int L = B / 4;
+    unsigned u[L];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      if constexpr (sizeof(T) == 4)
+        u[i] = __float_as_uint(f[i]);
+      else
+        u[i] = bf16_bits(f[2 * i]) | (bf16_bits(f[2 * i + 1]) << 16);
+    }
+    if constexpr (L == 4) return make_uint4(u[0], u[1], u[2], u[3]);
+    else if constexpr (L == 2) return make_uint2(u[0], u[1]);
+    else return u[0];
+  }
+}
+
+// one B-byte word from device to shared memory: cp.async for 4, 8 and 16
+// bytes (both addresses aligned to B), a plain copy for 2
+template <int B>
+__device__ __forceinline__ void copy_word(typename Word<B>::type* dst,
+                                          const typename Word<B>::type* src) {
+  if constexpr (B == 2) {
+    *dst = *src;
+  } else {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (B == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src)
+                   : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src), "n"(B)
+                   : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// A thread's VEC per-channel sums folded into the group segments of its
+// vector (seg channels each, in channel order), written to out[0..VEC/seg)
+// or added to what is there
+template <int VEC>
+__device__ __forceinline__ void fold_segments(const float* acc, float* out,
+                                              int seg, bool add) {
+  float run = 0.f;
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    run += acc[j];
+    if ((j + 1) % seg == 0) {
+      out[s] = add ? out[s] + run : run;
+      run = 0.f;
+      ++s;
+    }
+  }
+}
+
+// The shared memory gn_cluster carves: the slab (rounded up to 16
+// bytes), part2 and gstat [G] float2, part1 [G] float, and two buffers
+// of [rt][C/seg] floats. ops/group_norm.py:cluster_smem mirrors it.
+long cluster_smem(long R, long C, long G, long elt, long vec, long threads,
+                  long seg) {
+  const long cv = C / vec;
+  const long rt = threads / (cv < threads ? cv : threads);
+  return ((R * C * elt + 15) & ~15L) + 20 * G + 8 * rt * (C / seg);
+}
+
+// grid: N * k CTAs in clusters of k along x, one cluster per sample;
+// blockDim.x threads (a multiple of 32, at most 512).
+template <typename T, int B>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_cluster(const T* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, T* __restrict__ y, int HW,
+               int C, int G, int R, int seg, int relu, float eps) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int n = blockIdx.x / k;
+  const int r0 = q * R;
+  const int rows = max(0, min(R, HW - r0));
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;  // vectors a row
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  const int tx = tid % ct, ty = tid / ct;
+  const bool active = ty < rt;
+  const int cg = C / G;
+  const int NS = C / seg;      // segments a row
+  const int segv = VEC / seg;  // segments a vector
+  const int spg = cg / seg;    // segments a group
+  const float count = (float)HW * (float)cg;
+
+  extern __shared__ __align__(16) unsigned char shm[];
+  W* slab = reinterpret_cast<W*>(shm);
+  const size_t slab_bytes =
+      ((size_t)R * C * sizeof(T) + 15) & ~(size_t)15;
+  float2* part2 = reinterpret_cast<float2*>(shm + slab_bytes);
+  float2* gstat = part2 + G;
+  float* part1 = reinterpret_cast<float*>(gstat + G);
+  float* buf = part1 + G;
+  float* buf2 = buf + rt * NS;
+
+  // the slab, from device memory once, in kChunks groups of rows
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* src = reinterpret_cast<const W*>(x + base);
+  for (int j = 0; j < kChunks; ++j) {
+    const int e1 = rows * (j + 1) / kChunks * CV;
+    for (int e = rows * j / kChunks * CV + tid; e < e1; e += nthreads)
+      copy_word<B>(slab + e, src + e);
+    cp_async_commit();
+  }
+
+  // pass 1: sums, a chunk as soon as it has landed
+  for (int j = 0; j < kChunks; ++j) {
+    cp_async_wait(kChunks - 1 - j);
+    __syncthreads();
+    if (active) {
+      const int c1 = rows * (j + 1) / kChunks;
+      for (int cv = tx; cv < CV; cv += ct) {
+        float acc[VEC] = {};
+#pragma unroll 4
+        for (int r = rows * j / kChunks + ty; r < c1; r += rt) {
+          float f[VEC];
+          unpack<T, B>(slab[(size_t)r * CV + cv], f);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) acc[i] += f[i];
+        }
+        fold_segments<VEC>(acc, buf + ty * NS + cv * segv, seg, j > 0);
+      }
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < NS; s += nthreads) {
+    float v = buf[s];
+    for (int t = 1; t < rt; ++t) v += buf[t * NS + s];
+    buf[s] = v;
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += nthreads) {
+    float v = 0.f;
+    for (int i = 0; i < spg; ++i) v += buf[g * spg + i];
+    part1[g] = v;
+  }
+  cluster.sync();
+  for (int g = tid; g < G; g += nthreads) {
+    float tot = 0.f;
+    for (int r = 0; r < k; ++r) tot += cluster.map_shared_rank(part1, r)[g];
+    gstat[g].x = tot / count;
+  }
+  __syncthreads();
+
+  // pass 2: sum(x - m) and sum((x - m)^2) in the same order
+  if (active) {
+    for (int cv = tx; cv < CV; cv += ct) {
+      float m[VEC], sd[VEC] = {}, sq[VEC] = {};
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) m[i] = gstat[(cv * VEC + i) / cg].x;
+#pragma unroll 4
+      for (int r = ty; r < rows; r += rt) {
+        float f[VEC];
+        unpack<T, B>(slab[(size_t)r * CV + cv], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = f[i] - m[i];
+          sd[i] += d;
+          sq[i] = fmaf(d, d, sq[i]);
+        }
+      }
+      fold_segments<VEC>(sd, buf + ty * NS + cv * segv, seg, false);
+      fold_segments<VEC>(sq, buf2 + ty * NS + cv * segv, seg, false);
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < NS; s += nthreads) {
+    float v = buf[s], w = buf2[s];
+    for (int t = 1; t < rt; ++t) {
+      v += buf[t * NS + s];
+      w += buf2[t * NS + s];
+    }
+    buf[s] = v;
+    buf2[s] = w;
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += nthreads) {
+    float v = 0.f, w = 0.f;
+    for (int i = 0; i < spg; ++i) {
+      v += buf[g * spg + i];
+      w += buf2[g * spg + i];
+    }
+    part2[g] = make_float2(v, w);
+  }
+  cluster.sync();
+  for (int g = tid; g < G; g += nthreads) {
+    float d = 0.f, s2 = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const float2 p = cluster.map_shared_rank(part2, r)[g];
+      d += p.x;
+      s2 += p.y;
+    }
+    const float dm = d / count;
+    const float var = fmaxf(s2 / count - dm * dm, 0.f);
+    gstat[g] = make_float2(gstat[g].x + dm, 1.0f / sqrtf(var + eps));
+  }
+  __syncthreads();
+
+  // normalise from shared memory; one store a word
+  if (active) {
+    W* dst = reinterpret_cast<W*>(y + base);
+    for (int cv = tx; cv < CV; cv += ct) {
+      float m[VEC], a[VEC], b[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int c = cv * VEC + i;
+        const float2 st = gstat[c / cg];
+        m[i] = st.x;
+        a[i] = st.y * scale[c];
+        b[i] = bias[c];
+      }
+#pragma unroll 4
+      for (int r = ty; r < rows; r += rt) {
+        float f[VEC];
+        unpack<T, B>(slab[(size_t)r * CV + cv], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float v = fmaf(f[i] - m[i], a[i], b[i]);
+          f[i] = relu ? fmaxf(v, 0.f) : v;
+        }
+        dst[(size_t)r * CV + cv] = pack<T, B>(f);
+      }
+    }
+  }
+  // no CTA leaves while another may still read its part2
+  cluster.sync();
+}
+
+template <typename T, int B>
+struct Instance {
+  using type = T;
+  static constexpr int bytes = B;
+};
+
+// calls f(Instance<T, B>{}) for the kernel of (dtype, vector bytes)
+template <typename F>
+int with_instance(int dtype, int vec_bytes, F&& f) {
+  if (dtype == 1) {
+    switch (vec_bytes) {
+      case 16: return f(Instance<__nv_bfloat16, 16>{});
+      case 8: return f(Instance<__nv_bfloat16, 8>{});
+      case 4: return f(Instance<__nv_bfloat16, 4>{});
+      case 2: return f(Instance<__nv_bfloat16, 2>{});
+    }
+  } else if (dtype == 0) {
+    switch (vec_bytes) {
+      case 16: return f(Instance<float, 16>{});
+      case 8: return f(Instance<float, 8>{});
+      case 4: return f(Instance<float, 4>{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int N, int k,
+                                  int threads, int smem,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)N * (unsigned)k);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)k;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// (kernel, device, k, threads, smem) whose attributes are set and whose
+// clusters were seen to fit, so that later launches skip the queries
+struct Checked {
+  const void* fn;
+  int device, k, threads, smem, clusters;
+};
+std::mutex checked_mu;
+std::vector<Checked> checked;
+
+// Sets the kernel's shared-memory limit (and the non-portable cluster
+// size above 8) and asks how many clusters of (k, threads, smem) fit on
+// the card at once; *clusters = 0 means none can run.
+template <typename T, int B>
+int cluster_occupancy(int k, int threads, int smem, int* clusters) {
+  const void* fn = reinterpret_cast<const void*>(gn_cluster<T, B>);
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return (int)e;
+  {
+    std::lock_guard<std::mutex> lock(checked_mu);
+    for (const Checked& c : checked)
+      if (c.fn == fn && c.device == device && c.k == k &&
+          c.threads == threads && c.smem == smem) {
+        *clusters = c.clusters;
+        return 0;
+      }
+  }
+  e = cudaFuncSetAttribute(gn_cluster<T, B>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e != cudaSuccess) return (int)e;
+  if (k > 8) {
+    e = cudaFuncSetAttribute(gn_cluster<T, B>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, 1, k, threads, smem, 0);
+  e = cudaOccupancyMaxActiveClusters(clusters, gn_cluster<T, B>, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(checked_mu);
+  checked.push_back({fn, device, k, threads, smem, *clusters});
+  return 0;
+}
+
+template <typename T, int B>
+int launch_cluster(const void* x, const float* scale, const float* bias,
+                   void* y, int N, int HW, int C, int G, int k, int R,
+                   int threads, int seg, int smem, int relu, float eps,
+                   cudaStream_t stream) {
+  constexpr int VEC = B / (int)sizeof(T);
+  // the plan must cover every row and give the kernel the shared memory
+  // it carves
+  if (N < 1 || HW < 1 || G < 1 || C % G || C % VEC || seg < 1 ||
+      VEC % seg || (C / G) % seg || k < 1 || k > kMaxCluster || R < 1 ||
+      (long)R * k < HW || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || smem > kMaxSmem ||
+      cluster_smem(R, C, G, sizeof(T), VEC, threads, seg) > smem)
+    return (int)cudaErrorInvalidValue;
+  int clusters = 0;
+  int e = cluster_occupancy<T, B>(k, threads, smem, &clusters);
+  if (e != 0) return e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, N, k, threads, smem, stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_cluster<T, B>, static_cast<const T*>(x), scale, bias,
+      static_cast<T*>(y), HW, C, G, R, seg, relu, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; vec_bytes: the width of every copy,
+// load and store (16, 8, 4, or 2 for bfloat16), which C * elt and the
+// x and y pointers must be multiples of. One launch of N * k CTAs.
+extern "C" int group_norm_fwd_cluster(const void* x, const float* scale,
+                                      const float* bias, void* y, int dtype,
+                                      int vec_bytes, int N, int HW, int C,
+                                      int G, int k, int rows, int threads,
+                                      int seg, int smem, int relu, float eps,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_cluster<typename I::type, I::bytes>(
+        x, scale, bias, y, N, HW, C, G, k, rows, threads, seg, smem, relu,
+        eps, s);
+  });
+}
+
+// How many clusters of k CTAs of (threads, smem) the card holds at once
+// (into *clusters); the same query the launch makes.
+extern "C" int group_norm_cluster_occupancy(int dtype, int vec_bytes, int k,
+                                            int threads, int smem,
+                                            int* clusters) {
+  if (k < 1 || k > kMaxCluster || smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    return cluster_occupancy<typename I::type, I::bytes>(k, threads, smem,
+                                                         clusters);
+  });
 }

@@ -20,17 +20,37 @@ optional ReLU, and the output in the input's dtype.
   ``_gn_bwd`` does the same with ``jax.vjp``), so the gradients are the
   plain version's.
 * ``launches`` counts calls that reach ``ops/csrc/group_norm.cu``: one per
-  ``group_norm`` call, however many CUDA launches the kernel makes.
+  ``group_norm`` call, whichever body runs; ``cluster_launches`` counts
+  those that ran the cluster body.
+
+The kernel file has two bodies, chosen by shape (:func:`cluster_plan`):
+
+* **the cluster body** (``gn_cluster``): one CUDA launch per call and one
+  thread-block cluster of ``k`` CTAs per sample, each CTA holding a slab
+  of the sample's rows in shared memory, so that ``x`` is read from
+  device memory once; the statistics are exchanged inside the cluster in
+  a fixed order, so two launches give the same bits. It takes every
+  sample that fits ``k`` × 227 KB with its tables (``k`` up to 16 where
+  the card holds such clusters), which is every ResNet-50 site at 224²,
+  bf16 or f32. The plan is taken once per shape and card.
+* **the tiled body**, three launches (``gn_tile_stats``, ``gn_merge``,
+  ``gn_apply``, cut by :func:`plan`) for samples that do not fit, such as
+  f32 at 112×112×128 (6.4 MB a sample). It needs f32 scratch for the
+  tiles' partials and the statistics, which the wrapper allocates only
+  for it.
 
 The kernel takes ``x`` contiguous in NHWC order (an NCHW tensor in
 ``torch.channels_last`` seen through ``permute(0, 2, 3, 1)`` is that), in
 float32 or bfloat16, with float32 ``scale``/``bias`` of ``[C]``; the
-wrapper raises on any other layout or dtype rather than copying.
+wrapper raises on any other layout or dtype rather than copying. A base
+pointer or a row of ``C`` elements that is not a multiple of 16 bytes
+makes the cluster body copy in 8-, 4- or 2-byte words instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -51,8 +71,23 @@ _APPLY_ROWS = 8
 _APPLY_BLOCKS = 4096
 _MAX_ELEMS_PER_SAMPLE = 2 ** 30
 
-# launches of the CUDA kernel; reset by whoever reads it
+# the cluster body: the largest cluster (16 CTAs; clusters above 8 are
+# non-portable, and a plan takes a cluster size only where the card's
+# occupancy query holds at least one such cluster), the dynamic shared
+# memory a CTA may take (227 KB), the most a CTA may take for two to share
+# an SM (228 KB less 1 KB reserved a CTA, halved), its block width, and
+# the share of the SMs a call's CTAs should reach
+_MAX_CLUSTER = 16
+_MAX_SMEM = 232_448
+_TWO_PER_SM_SMEM = (233_472 - 2 * 1_024) // 2
+_CLUSTER_THREADS = 256
+_SMS = 132
+_WIDEST_WORD = 16
+
+# launches of the CUDA kernel (either body) and of its cluster body;
+# reset by whoever reads them
 launches = 0
+cluster_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -99,9 +134,10 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 
 def plan(n: int, hw: int, c: int) -> dict:
-    """How the kernel cuts one call: the statistics tiles (rows of H·W per
-    tile, tiles per sample), the threads of a statistics block (channel
-    threads × row threads) and the normalise blocks per sample."""
+    """How the tiled body (three launches) cuts one call: the statistics
+    tiles (rows of H·W per tile, tiles per sample), the threads of a
+    statistics block (channel threads × row threads) and the normalise
+    blocks per sample."""
     ntiles = max(1, min(hw, -(-_STATS_BLOCKS // n)))
     tile_rows = -(-hw // ntiles)
     ntiles = -(-hw // tile_rows)
@@ -113,17 +149,122 @@ def plan(n: int, hw: int, c: int) -> dict:
             "apply_blocks": apply_blocks}
 
 
-def _kernel_fn():
-    """The C entry point of ``ops/csrc/group_norm.cu``, built on first
-    use, with every argument typed (pointers and the stream as
-    ``c_void_p``)."""
+def vector_bytes(c: int, elt: int, align: int = _WIDEST_WORD) -> int:
+    """The widest word (16, 8, 4 or 2 bytes, never below one element)
+    that divides a row of ``c`` elements of ``elt`` bytes and the data
+    pointers' alignment ``align``: every copy, load and store of the
+    cluster body moves one such word."""
+    for vb in (16, 8, 4, 2):
+        if vb >= elt and (c * elt) % vb == 0 and align % vb == 0:
+            return vb
+    return elt
+
+
+def segment(c: int, groups: int, vec: int) -> int:
+    """Channels a thread folds together before its vector's sums leave
+    registers: a whole group where a vector holds whole groups, the whole
+    vector where a group holds whole vectors, else one channel."""
+    cg = c // groups
+    if vec % cg == 0:
+        return cg
+    if cg % vec == 0:
+        return vec
+    return 1
+
+
+def cluster_smem(rows: int, c: int, groups: int, elt: int, vec: int,
+                 threads: int, seg: int) -> int:
+    """Bytes of shared memory a CTA of the cluster body takes: its slab
+    of ``rows × c`` elements (rounded up to 16 bytes), 20 bytes a group
+    for the exchanged partials and the statistics, and two buffers of one
+    float per (row thread, segment). The ``.cu`` file's ``cluster_smem``
+    carves the same."""
+    cv = c // vec
+    rt = threads // min(cv, threads)
+    slab = -(-rows * c * elt // 16) * 16
+    return slab + 20 * groups + 8 * rt * (c // seg)
+
+
+def resident_estimate(p: dict) -> int:
+    """Clusters of plan ``p`` an H100 holds at once, estimated without
+    the card: at most four 256-thread CTAs an SM (the registers of the
+    bf16 body), fewer where their shared memory runs out."""
+    per_sm = min(4, 233_472 // (p["smem"] + 1_024))
+    return _SMS * per_sm // p["k"]
+
+
+def cluster_plan(n: int, hw: int, c: int, dtype: torch.dtype, groups: int,
+                 align: int = _WIDEST_WORD, resident=resident_estimate
+                 ) -> dict | None:
+    """How the cluster body cuts one call, or ``None`` where no cluster of
+    up to 16 CTAs the card holds fits a sample in its shared memory (the
+    tiled body then runs).
+
+    ``k`` CTAs a sample (a power of two up to 16, every CTA with at
+    least one row), each of ``threads`` threads holding ``rows`` = ⌈hw/k⌉
+    rows (the last slab ragged). ``resident(plan)`` gives the
+    clusters of a plan the card holds at once (the wrapper asks the
+    card; :func:`resident_estimate` without it); a ``k`` of which none
+    fits is not taken. Among the rest, in order: the fewest waves of
+    ``n`` clusters; enough CTAs (``n·k``) to reach 7 of every 8 SMs; a
+    slab small enough for two CTAs to share an SM; the smallest ``k``.
+    ``align`` is the byte alignment of the data pointers."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    vb = vector_bytes(c, elt, align)
+    vec = vb // elt
+    seg = segment(c, groups, vec)
+    threads = _CLUSTER_THREADS
+    cover = _SMS - _SMS // 8
+    plans = []
+    k = 1
+    while k <= _MAX_CLUSTER:
+        rows = -(-hw // k)
+        smem = cluster_smem(rows, c, groups, elt, vec, threads, seg)
+        if (k == 1 or (k - 1) * rows < hw) and smem <= _MAX_SMEM:
+            p = {"k": k, "rows": rows, "threads": threads,
+                 "vec_bytes": vb, "seg": seg, "smem": smem}
+            clusters = resident(p)
+            if clusters >= 1:
+                p["waves"] = -(-n // clusters)
+                plans.append(p)
+        k *= 2
+    if not plans:
+        return None
+    return min(plans, key=lambda p: (p["waves"], n * p["k"] < cover,
+                                     p["smem"] > _TWO_PER_SM_SMEM, p["k"]))
+
+
+def _kernel_fn(name: str = "group_norm_fwd"):
+    """A C entry point of ``ops/csrc/group_norm.cu`` (``group_norm_fwd``,
+    the tiled body; ``group_norm_fwd_cluster``; ``group_norm_cluster_
+    occupancy``), built on first use, with every argument typed (pointers
+    and the stream as ``c_void_p``)."""
     from mmlspark_tpu_torch.ops import _build
-    fn = _build.load("group_norm").group_norm_fwd
+    fn = getattr(_build.load("group_norm"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = {
+            "group_norm_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+            + [ctypes.c_float, ctypes.c_void_p],
+            "group_norm_fwd_cluster": [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p],
+            "group_norm_cluster_occupancy": [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_int)],
+        }[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def cluster_occupancy(dtype: torch.dtype, p: dict) -> int:
+    """How many clusters of plan ``p`` the current card holds at once
+    (the query the cluster launch makes before it launches)."""
+    out = ctypes.c_int(0)
+    err = _kernel_fn("group_norm_cluster_occupancy")(
+        _DTYPES[dtype], p["vec_bytes"], p["k"], p["threads"], p["smem"],
+        ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"group_norm cluster occupancy query failed: "
+                           f"cudaError {err} (plan {p})")
+    return out.value
 
 
 def _check_cuda_operands(x, scale, bias) -> None:
@@ -151,34 +292,67 @@ def _check_cuda_operands(x, scale, bias) -> None:
                          f"{_MAX_ELEMS_PER_SAMPLE} elements per sample")
 
 
+@functools.lru_cache(maxsize=None)
+def _device_plan(n, hw, c, dtype, groups, align, device) -> dict | None:
+    """:func:`cluster_plan` with the current card's occupancy query, once
+    for each shape on each card."""
+    return cluster_plan(n, hw, c, dtype, groups, align,
+                        resident=lambda p: cluster_occupancy(dtype, p))
+
+
+def _pointer_align(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 dividing every data pointer."""
+    align = _WIDEST_WORD
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
 def _group_norm_cuda(x, scale, bias, num_groups: int, eps: float,
                      relu: bool) -> torch.Tensor:
-    """Launch the kernel on the current stream; output and scratch are
-    allocated here, the kernel allocates nothing."""
-    global launches
+    """Launch the kernel on the current stream: the cluster body where
+    :func:`cluster_plan` finds one, else the tiled body with its scratch.
+    The output (and that scratch) is allocated here; the kernel allocates
+    nothing."""
+    global launches, cluster_launches
     _check_cuda_operands(x, scale, bias)
     n, h, w, c = x.shape
-    p = plan(n, h * w, c)
-    fn = _kernel_fn()
     out = torch.empty_like(x)
-    part = torch.empty((n, p["ntiles"], num_groups, 2), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((n, num_groups, 2), dtype=torch.float32,
-                        device=x.device)
     with torch.cuda.device(x.device):
+        cp = _device_plan(n, h * w, c, x.dtype, num_groups,
+                          _pointer_align(x, out), x.device.index)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        with _count_lock:
-            launches += 1
-        err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), part.data_ptr(), stats.data_ptr(),
-                 _DTYPES[x.dtype], n, h * w, c, num_groups,
-                 p["tile_rows"], p["ntiles"], p["ct"], p["rt"],
-                 p["apply_blocks"], _THREADS, int(relu), float(eps),
-                 stream)
+        if cp is not None:
+            fn = _kernel_fn("group_norm_fwd_cluster")
+            with _count_lock:
+                launches += 1
+                cluster_launches += 1
+            err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), _DTYPES[x.dtype], cp["vec_bytes"], n,
+                     h * w, c, num_groups, cp["k"], cp["rows"],
+                     cp["threads"], cp["seg"], cp["smem"], int(relu),
+                     float(eps), stream)
+        else:
+            p = plan(n, h * w, c)
+            fn = _kernel_fn()
+            part = torch.empty((n, p["ntiles"], num_groups, 2),
+                               dtype=torch.float32, device=x.device)
+            stats = torch.empty((n, num_groups, 2), dtype=torch.float32,
+                                device=x.device)
+            with _count_lock:
+                launches += 1
+            err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                     _DTYPES[x.dtype], n, h * w, c, num_groups,
+                     p["tile_rows"], p["ntiles"], p["ct"], p["rt"],
+                     p["apply_blocks"], _THREADS, int(relu), float(eps),
+                     stream)
     if err != 0:
+        body = f"cluster plan {cp}" if cp is not None else "the tiled body"
         raise RuntimeError(
             f"group_norm kernel launch failed: cudaError {err} "
-            f"(x {tuple(x.shape)} {x.dtype}, groups {num_groups})")
+            f"(x {tuple(x.shape)} {x.dtype}, groups {num_groups}, {body})")
     return out
 
 

@@ -24,6 +24,13 @@ Tolerances:
 * gradients (float32): ``rtol=atol=1e-4``: the backward of the same
   function through two autodiff systems, each summing over H·W in its
   own order.
+* the cluster body's arithmetic, emulated in float32 in the kernel's
+  order of sums (``_cluster_emulation``): ``F32_TOL`` against the JAX
+  reference at unit spread; at mean 200 and spread 0.02, 5e-3 against
+  both the JAX reference and a float64 oracle (the JAX package's pin;
+  measured 2.3e-3 and 4.0e-4: the second pass's correction of the mean
+  leaves it at the float32 step of the mean, 7.6e-4 of the spread, and
+  the JAX reference's own sums are farther off).
 """
 
 import numpy as np
@@ -186,12 +193,12 @@ def test_unknown_impl_raises(impl):
 
 
 def test_cuda_impl_on_cpu_tensors_raises_and_launches_nothing():
-    before = tgn.launches
+    before = (tgn.launches, tgn.cluster_launches)
     args = (torch.zeros(1, 2, 2, 4), torch.ones(4), torch.zeros(4), 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tgn.group_norm(*args, impl="cuda")
     tgn.group_norm(*args)  # the plain version on CPU tensors
-    assert tgn.launches == before
+    assert (tgn.launches, tgn.cluster_launches) == before
 
 
 @pytest.mark.parametrize("n,hw,c", [(64, 112 * 112, 64), (64, 49, 2048),
@@ -203,29 +210,280 @@ def test_kernel_plan_covers_every_row(n, hw, c):
     assert p["ct"] * p["rt"] <= 256 and p["apply_blocks"] >= 1
 
 
+# (H·W, C) of the 12 distinct GroupNorm sites of ResNet-50 at 224², all
+# with 32 groups: the stem, then each stage's 1x1 / 3x3 / 1x1 widths
+RESNET50_SITES = [(112 * 112, 64), (56 * 56, 64), (56 * 56, 256),
+                  (56 * 56, 128), (28 * 28, 128), (28 * 28, 512),
+                  (28 * 28, 256), (14 * 14, 256), (14 * 14, 1024),
+                  (14 * 14, 512), (7 * 7, 512), (7 * 7, 2048)]
+
+
+def _check_cluster_plan(p, n, hw, c, dtype, groups):
+    elt = torch.empty((), dtype=dtype).element_size()
+    k, rows = p["k"], p["rows"]
+    # the slabs [q·rows, min((q+1)·rows, hw)) cover every row once, and
+    # none is empty
+    assert (k - 1) * rows < hw <= k * rows
+    assert 1 <= k <= tgn._MAX_CLUSTER and k & (k - 1) == 0
+    assert p["threads"] == 256 and p["waves"] >= 1
+    vec = p["vec_bytes"] // elt
+    assert c % vec == 0 and vec % p["seg"] == 0
+    assert (c // groups) % p["seg"] == 0
+    # the slab and its tables fit one CTA's 227 KB of shared memory
+    smem = tgn.cluster_smem(rows, c, groups, elt, vec, p["threads"],
+                            p["seg"])
+    assert rows * c * elt < smem == p["smem"] <= 232_448
+
+
+@pytest.mark.parametrize("n", [64, 1])
+@pytest.mark.parametrize("hw,c", RESNET50_SITES)
+def test_cluster_plan_takes_every_resnet50_bf16_site(hw, c, n):
+    p = tgn.cluster_plan(n, hw, c, torch.bfloat16, 32)
+    assert p is not None and p["vec_bytes"] == 16
+    _check_cluster_plan(p, n, hw, c, torch.bfloat16, 32)
+
+
+@pytest.mark.parametrize("n,hw,c,groups,dtype,align", [
+    (64, 28 * 28, 512, 32, torch.float32, 16),
+    (2, 13 * 11, 64, 32, torch.bfloat16, 16),
+    (2, 13 * 11, 96, 32, torch.bfloat16, 16),
+    (3, 35, 48, 16, torch.bfloat16, 2),
+    (1, 7 * 7, 2048, 32, torch.float32, 4),
+    (5, 1, 8, 4, torch.float32, 16)])
+def test_cluster_plan_covers_every_row(n, hw, c, groups, dtype, align):
+    p = tgn.cluster_plan(n, hw, c, dtype, groups, align)
+    assert p is not None
+    _check_cluster_plan(p, n, hw, c, dtype, groups)
+
+
+@pytest.mark.parametrize("hw,c,dtype", [
+    (112 * 112, 128, torch.float32), (224 * 224, 64, torch.float32),
+    (224 * 224, 128, torch.bfloat16)])
+def test_samples_past_the_largest_cluster_take_the_tiled_body(hw, c,
+                                                              dtype):
+    """A sample past 16 × 227 KB (6.4 MB and more here) has no cluster
+    plan, so the wrapper launches the tiled body."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    assert hw * c * elt > tgn._MAX_CLUSTER * 232_448
+    assert tgn.cluster_plan(64, hw, c, dtype, 32) is None
+    assert tgn.cluster_plan(1, hw, c, dtype, 32) is None
+
+
+@pytest.mark.parametrize("hw,c", [(112 * 112, 64), (56 * 56, 256)])
+def test_f32_stem_samples_need_clusters_past_the_portable_eight(hw, c):
+    """f32 at 112²×64 or 56²×256 is 3.2 MB a sample, more than 8 × 227
+    KB: on a card that holds no cluster past the portable 8 it takes the
+    tiled body; with the non-portable 16 it fits 200 KB a CTA."""
+    portable = tgn.cluster_plan(
+        64, hw, c, torch.float32, 32,
+        resident=lambda p: 0 if p["k"] > 8 else tgn.resident_estimate(p))
+    assert portable is None
+    p = tgn.cluster_plan(64, hw, c, torch.float32, 32)
+    assert p["k"] == 16
+    _check_cluster_plan(p, 64, hw, c, torch.float32, 32)
+
+
+def test_cluster_size_the_card_cannot_hold_is_not_taken():
+    """A cluster size of which the card holds no cluster is skipped; with
+    none left the tiled body runs."""
+    p = tgn.cluster_plan(64, 112 * 112, 64, torch.bfloat16, 32,
+                         resident=lambda p: 0 if p["k"] == 16 else 15)
+    assert p["k"] == 8 and p["waves"] == 5
+    assert tgn.cluster_plan(64, 112 * 112, 64, torch.bfloat16, 32,
+                            resident=lambda p: 0) is None
+
+
+@pytest.mark.parametrize("hw,c,held,want", [
+    # every cluster of a call in one wave beats more, smaller CTAs
+    (56 * 56, 64, {2: 66, 4: 62, 8: 45, 16: 28}, 2),
+    # one wave either way: the call's CTAs should reach most SMs
+    (14 * 14, 256, {1: 264, 2: 264, 4: 124, 8: 62, 16: 28}, 2),
+    # three waves either way: two CTAs sharing an SM, then the smaller k
+    (56 * 56, 128, {4: 30, 8: 30, 16: 28}, 8),
+    (28 * 28, 512, {4: 30, 8: 30, 16: 28}, 8)])
+def test_cluster_size_follows_waves_then_coverage(hw, c, held, want):
+    """The choice among cluster sizes, given the clusters the card holds
+    at once (the occupancy an H100 reported for these bf16 plans)."""
+    p = tgn.cluster_plan(64, hw, c, torch.bfloat16, 32,
+                         resident=lambda p: held.get(p["k"], 0))
+    assert p["k"] == want
+    _check_cluster_plan(p, 64, hw, c, torch.bfloat16, 32)
+
+
+@pytest.mark.parametrize("c,elt,align,want", [
+    (64, 2, 16, 16), (96, 2, 16, 16), (12, 2, 16, 8), (6, 2, 16, 4),
+    (3, 2, 16, 2), (64, 2, 2, 2), (64, 2, 8, 8), (64, 4, 4, 4),
+    (2, 4, 16, 8), (3, 4, 16, 4)])
+def test_vector_bytes_follow_the_row_and_the_pointers(c, elt, align, want):
+    """A row of C elements or a data pointer that is not a multiple of 16
+    bytes narrows every copy, load and store (never below one element)."""
+    assert tgn.vector_bytes(c, elt, align) == want
+
+
+def test_pointer_alignment_of_a_view_with_a_storage_offset():
+    base = torch.zeros(256 + 16, dtype=torch.bfloat16)
+    first = next(i for i in range(8) if (base.data_ptr() + 2 * i) % 16 == 0)
+    for off, want in [(0, 16), (1, 2), (2, 4), (4, 8), (3, 2)]:
+        view = base[first + off:first + off + 256].view(2, 4, 4, 8)
+        assert tgn._pointer_align(view) == want
+        assert tgn._pointer_align(view, torch.empty_like(view)) == want
+
+
+@pytest.mark.parametrize("cg,vec,want", [(2, 8, 2), (8, 8, 8), (64, 8, 8),
+                                         (2, 4, 2), (8, 4, 4), (3, 8, 1),
+                                         (12, 8, 1), (5, 1, 1)])
+def test_segments_fold_whole_groups_or_whole_vectors(cg, vec, want):
+    assert tgn.segment(32 * cg, 32, vec) == want
+
+
+def _seq_sum(t, dim):
+    """Sum over ``dim`` in index order, each addition rounded to float32."""
+    t = t.movedim(dim, 0)
+    out = torch.zeros_like(t[0])
+    for i in range(t.shape[0]):
+        out = out + t[i]
+    return out
+
+
+def _cluster_emulation(x, scale, bias, groups, eps, relu, p, elt):
+    """The cluster body's arithmetic in plain float32 PyTorch, in its
+    order of sums: per CTA (rows [q·R, (q+1)·R) of a sample), each row
+    thread sums its rows (stride rt) in row order per chunk of rows,
+    folds its channels into segments and adds the chunk into its buffer;
+    the row threads in order, then a group's segments in order; the k
+    CTAs' partials in rank order; the mean m; then sum(x − m) and
+    sum((x − m)²) the same way, the mean corrected by the first and the
+    variance taken about it; then (x − mean)·(rstd·scale) + bias."""
+    n, h, w, c = x.shape
+    hw = h * w
+    xs = x.float().reshape(n, hw, c)
+    k, rows_per_cta, seg = p["k"], p["rows"], p["seg"]
+    cv = c // (p["vec_bytes"] // elt)
+    rt = p["threads"] // min(cv, p["threads"])
+    cg = c // groups
+    count = torch.tensor(float(hw)) * float(cg)
+
+    def thread_sums(rows):  # [r, C] -> [rt, C]
+        steps = -(-rows.shape[0] // rt)
+        padded = torch.zeros(steps * rt, c)
+        padded[:rows.shape[0]] = rows
+        return _seq_sum(padded.reshape(steps, rt, c), 0)
+
+    def segments(t):  # [rt, C] -> [rt, C/seg]
+        return _seq_sum(t.reshape(rt, c // seg, seg), -1)
+
+    def cta_groups(buf):  # [rt, C/seg] -> [G]
+        return _seq_sum(_seq_sum(buf, 0).reshape(groups, cg // seg), -1)
+
+    out = torch.empty_like(xs)
+    for i in range(n):
+        slabs = [xs[i, q * rows_per_cta:(q + 1) * rows_per_cta]
+                 for q in range(k)]
+        part1 = []
+        for slab in slabs:
+            r = slab.shape[0]
+            chunks = [segments(thread_sums(slab[r * j // 4:
+                                                r * (j + 1) // 4]))
+                      for j in range(4)]
+            part1.append(cta_groups(_seq_sum(torch.stack(chunks), 0)))
+        m = (_seq_sum(torch.stack(part1), 0) / count).repeat_interleave(cg)
+        part_d, part_q = [], []
+        for slab in slabs:
+            d = slab - m
+            part_d.append(cta_groups(segments(thread_sums(d))))
+            part_q.append(cta_groups(segments(thread_sums(d * d))))
+        dm = _seq_sum(torch.stack(part_d), 0) / count
+        var = torch.clamp_min(_seq_sum(torch.stack(part_q), 0) / count
+                              - dm * dm, 0.0)
+        mean = m + dm.repeat_interleave(cg)
+        rstd = (1.0 / torch.sqrt(var + eps)).repeat_interleave(cg)
+        y = (xs[i] - mean) * (rstd * scale) + bias
+        out[i] = torch.clamp_min(y, 0.0) if relu else y
+    return out.reshape(n, h, w, c)
+
+
+@pytest.mark.parametrize("center", [0.0, 200.0])
+@pytest.mark.parametrize("dtype,align", [("f32", 16), ("bf16", 16),
+                                         ("bf16", 2)])
+@pytest.mark.parametrize("c,groups", [(64, 32), (64, 8), (128, 2)])
+def test_cluster_order_of_sums_against_jax_oracle(c, groups, dtype, align,
+                                                  center):
+    """The cluster body's order of sums on a ragged 13×11 sample cut in
+    k = 8 slabs (the last of 17 rows), at cg ∈ {2, 8, 64} and the
+    vectors of 16-byte f32 and bf16 words and of single bf16 elements.
+    The values are float32: the order is what is under test."""
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    elt = 4 if dtype == "f32" else 2
+    p = tgn.cluster_plan(2, 143, c, tdt, groups, align,
+                         resident=lambda p: int(p["k"] == 8))
+    assert p["k"] == 8 and 143 - 7 * p["rows"] == 17
+    r = np.random.default_rng(11)
+    spread = 0.02 if center else 1.0
+    x = r.normal(center, spread, (2, 13, 11, c)).astype(np.float32)
+    if center:
+        scale, bias = np.ones(c, np.float32), np.zeros(c, np.float32)
+    else:
+        scale = r.normal(size=c).astype(np.float32)
+        bias = r.normal(size=c).astype(np.float32)
+    relu = not center
+    got = _cluster_emulation(torch.from_numpy(x), torch.from_numpy(scale),
+                             torch.from_numpy(bias), groups, 1e-6, relu, p,
+                             elt).numpy()
+    want = np.asarray(jax_group_norm_reference(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), groups,
+        relu=relu))
+    if not center:
+        np.testing.assert_allclose(got, want, **F32_TOL)
+        return
+    assert np.abs(got - want).max() < 5e-3
+    xf = x.astype(np.float64).reshape(2, 143, groups, c // groups)
+    mean = xf.mean(axis=(1, 3), keepdims=True)
+    var = ((xf - mean) ** 2).mean(axis=(1, 3), keepdims=True)
+    oracle = ((xf - mean) / np.sqrt(var + 1e-6)).reshape(x.shape)
+    assert np.abs(got - oracle).max() < 5e-3
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The CUDA kernel against its plain version on the card, at ResNet-50
-    shapes and the edge cases. Tolerance: float32 outputs 1e-4 (f32
-    statistics summed in another order); bfloat16 one step of the output
-    (both round one float32 result)."""
+    shapes and the edge cases, through the body its shape takes (the
+    cluster body, or the tiled body for a sample past the largest
+    cluster), each launch twice on the same input: equal bit for bit.
+    Tolerance: float32 outputs 1e-4 (f32 statistics summed in another
+    order); bfloat16 one step of the output (both round one float32
+    result)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for shape, groups, dtype, center, spread in [
-            ((8, 112, 112, 64), 32, torch.bfloat16, 0.0, 1.0),
-            ((8, 7, 7, 2048), 32, torch.float32, 0.0, 1.0),
-            ((2, 8, 8, 32), 8, torch.float32, 200.0, 0.02),
-            ((1, 13, 11, 64), 32, torch.bfloat16, 0.0, 1.0)]:
-        x = (center + spread * torch.randn(shape, generator=gen,
-                                           device=dev)).to(dtype)
+    # shape, groups, dtype, center, spread, storage offset, body
+    for shape, groups, dtype, center, spread, offset, body in [
+            ((8, 112, 112, 64), 32, torch.bfloat16, 0.0, 1.0, 0, "cluster"),
+            ((8, 7, 7, 2048), 32, torch.float32, 0.0, 1.0, 0, "cluster"),
+            ((2, 8, 8, 32), 8, torch.float32, 200.0, 0.02, 0, "cluster"),
+            ((1, 13, 11, 64), 32, torch.bfloat16, 0.0, 1.0, 0, "cluster"),
+            ((4, 13, 11, 96), 32, torch.bfloat16, 0.0, 1.0, 0, "cluster"),
+            ((8, 28, 28, 512), 32, torch.bfloat16, 0.0, 1.0, 0, "cluster"),
+            ((2, 14, 14, 256), 32, torch.bfloat16, 0.0, 1.0, 1, "cluster"),
+            ((2, 13, 11, 64), 32, torch.float32, 0.0, 1.0, 1, "cluster"),
+            ((2, 112, 112, 64), 32, torch.float32, 0.0, 1.0, 0, "cluster"),
+            ((2, 112, 112, 128), 32, torch.float32, 0.0, 1.0, 0, "tiled")]:
+        numel = int(np.prod(shape))
+        flat = (center + spread * torch.randn(numel + offset, generator=gen,
+                                              device=dev)).to(dtype)
+        # a contiguous view with a storage offset: a base pointer that is
+        # not 16-byte aligned
+        x = flat[offset:].view(shape)
         scale = torch.randn(shape[-1], generator=gen, device=dev)
         bias = torch.randn(shape[-1], generator=gen, device=dev)
-        before = tgn.launches
+        before = (tgn.launches, tgn.cluster_launches)
         got = tgn.group_norm(x, scale, bias, groups, relu=True)
+        again = tgn.group_norm(x, scale, bias, groups, relu=True)
         torch.cuda.synchronize()
-        assert tgn.launches == before + 1
+        clustered = 2 if body == "cluster" else 0
+        assert (tgn.launches, tgn.cluster_launches) == \
+            (before[0] + 2, before[1] + clustered), (shape, dtype, body)
+        assert torch.equal(got, again), (shape, dtype)
         want = tgn.group_norm(x, scale, bias, groups, relu=True,
                               impl="torch")
         tol = 1e-4 if dtype == torch.float32 else 2 ** -7

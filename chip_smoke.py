@@ -37,19 +37,23 @@ Phases, each printing JSON lines:
    through the kernel held against the plain attention on the same
    prefilled cache; tokens/s, TTFT, ITL, slot occupancy, one decode step's
    device time, idle share and the kernel's share (``torch.profiler``);
-5. **group_norm** — the GroupNorm kernel against its plain version at the
-   12 distinct GroupNorm shapes of ResNet-50 at 224² (N=64, bf16 and f32,
-   with and without the fused ReLU as the network uses it) and at the
-   edge cases (mean 200 / spread 0.02, C=64 in 32 groups, a ragged H·W,
-   C=96, N=1, a base pointer off 16 bytes, an f32 sample past the
-   largest cluster); every case launched twice and equal bit for bit,
-   with the body it took (the cluster body with its plan and the
-   clusters the card holds at once, or the tiled body); every bf16 site
-   of ResNet-50 must take the cluster body; per shape in bf16
-   its time with L2 warm and flushed, the plain version's,
-   ``F.group_norm``'s and the bound, and their sums over the 53 sites of
-   one forward; and, for scale, one launch's time by the same timing (a
-   one-element fill);
+5. **group_norm** — the GroupNorm forward and backward kernels against
+   their plain versions at the 12 distinct GroupNorm shapes of ResNet-50
+   at 224² (N=64, bf16 and f32, with and without the fused ReLU as the
+   network uses it) and at the edge cases (mean 200 / spread 0.02, C=64
+   in 32 groups, a ragged H·W, C=96, N=1, a base pointer off 16 bytes,
+   an f32 sample past the largest cluster, a group of zeros with bias 0
+   on the ReLU's tie); every case launched twice and equal bit for bit
+   (the backward once with ``dy`` strided, which its wrapper copies),
+   with the body the forward took (the cluster body with its plan and
+   the clusters the card holds at once, or the tiled body); every bf16
+   site of ResNet-50 must take the cluster body; per shape in bf16 the
+   forward's time with L2 warm and flushed, the plain version's,
+   ``F.group_norm``'s and the bound, the backward's with L2 warm and
+   flushed, its plain closed form's, the autograd route's,
+   ``F.group_norm``'s backward and its bound, and their sums over the 53
+   sites of one forward; and, for scale, one launch's time by the same
+   timing (a one-element fill);
 6. **resize** — the fused crop → resize → scale kernel against its plain
    version at the training geometry (N=64, 256² source, 240² window,
    224² out, C=3, offsets at 0, at the maximum and out of range) and at
@@ -66,13 +70,16 @@ Phases, each printing JSON lines:
    ``Trainer.fit_arrays`` for 7 steps of 64 rows with on-device
    preprocessing (random 240² window of a 256² uint8 source, bilinear
    resize to 224², flips, ImageNet standardisation): every loss finite,
-   the GroupNorm kernel launched 53 times and the resize kernel once per
-   step; the first step held against the same weights, batch and draws
-   through the plain versions, in float32 and in bf16; then one step
-   split by CUDA events and traced by ``torch.profiler`` (device busy
-   and idle time, the kernels' and the GroupNorm backward's share; the
-   traced step must hold exactly 53 GroupNorm forward kernels, one a
-   site);
+   the GroupNorm forward and backward kernels launched 53 times and the
+   resize kernel once per step (and the copies of a strided ``dy`` the
+   backward made); the first step held against the same weights, batch
+   and draws through the plain versions, in float32 and in bf16; then
+   one step split by CUDA events and traced by ``torch.profiler``
+   (device busy and idle time, wall time and images/s, the kernels' and
+   the GroupNorm backward's share; the traced step must hold exactly 53
+   GroupNorm forward kernels, one a site, 53 calls of the backward
+   kernel with each of its five kernels 53 times, and no call of a plain
+   GroupNorm route);
 9. **block_update** — the ring-hop block-update kernel against its plain
    version at every hop of a ring over the sequence-parallel training
    geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the first
@@ -163,9 +170,37 @@ GN_TOL_BF16_REL = 2.0 ** -7
 # operations per element of one GroupNorm call: the sum, the centred
 # square (sub, mul, add), the normalise (sub, mul, FMA) and the ReLU
 GN_OPS_PER_ELEMENT = 9
-# the GroupNorm forward kernels' names in a profiler trace: the cluster
-# body (one launch a call) and the tiled body (three)
-GN_KERNEL_NAMES = ("gn_cluster", "gn_tile_stats", "gn_merge", "gn_apply")
+# the GroupNorm forward kernels' names in a profiler trace that end a
+# forward call, one a call: the cluster body's only kernel and the tiled
+# body's last (its gn_merge the backward launches too)
+GN_KERNEL_NAMES = ("gn_cluster", "gn_apply")
+# GroupNorm backward kernel vs its plain version (the closed form), both
+# float32 from the same operands: the kernel sums over rows, tiles,
+# channels and samples in its own order, takes the statistics from
+# shifted sums over tiles of rows merged with Chan's formula, and
+# contracts products into FMAs. Each output is held to ops/group_norm.py
+# backward_error_bound at GN_BWD_REL of each term's own size (dx:
+# r·|gy·s|, and r·mean|s·gy| and r·(|x̂| + 1)·mean|s·gy·x̂| over the
+# group for c1 and c2; dscale: Σ|gy|·(|x̂| + 1); dbias: Σ|gy|): float32
+# sums of up to 800K terms in another order, and x̂'s relative error, lie
+# near 1e-6 of those sizes. An element whose y lies
+# that close to 0 may take the other side of the ReLU; the bound grants
+# it and its group and channel that (a group of zeros with bias 0 is
+# exactly 0 on both sides and is granted nothing: the tie must give 0.5).
+# At mean 200 and spread 0.02 the two sides' means differ by a few
+# float32 steps of 200 (7.6e-4 of the spread each), which shifts x̂ of a
+# whole group: GN_BWD_REL_OFFSET, the forward's pin. A bfloat16 dx adds
+# one bfloat16 step of the value (GN_TOL_BF16_REL), both sides rounding
+# one float32 result
+GN_BWD_REL = 1e-5
+GN_BWD_REL_OFFSET = GN_TOL_OFFSET
+# operations per element of the function: the statistics (the sum, the
+# centred square: 4), x̂ (2), the ReLU's y and its mask (2), the sums of gy
+# and gy·x̂ (3), dx (4)
+GN_BWD_OPS_PER_ELEMENT = 15
+# the backward's five kernels in a profiler trace, one each a call
+GN_BWD_KERNEL_NAMES = ("gn_bwd_stats", "gn_merge", "gn_bwd_reduce",
+                       "gn_bwd_merge", "gn_bwd_apply")
 
 # the resize kernel runs the plain version's float32 operations in the
 # same order, each rounded on its own (no FMA): equal bit for bit
@@ -340,6 +375,17 @@ def group_norm_bound(n, h, w, c, dtype) -> tuple[float, str]:
     elems = n * h * w * c
     return bound(2 * elems * elt + 2 * c * 4, GN_OPS_PER_ELEMENT * elems,
                  "float32")
+
+
+def group_norm_backward_bound(n, h, w, c, dtype) -> tuple[float, str]:
+    """The GroupNorm backward over ``[N, H, W, C]``: x and dy read once and
+    dx written once in x's type, scale and bias read and dscale and dbias
+    written once (f32), and GN_BWD_OPS_PER_ELEMENT float32 operations an
+    element."""
+    elt = 2 if dtype == "bfloat16" else 4
+    elems = n * h * w * c
+    return bound(3 * elems * elt + 4 * c * 4,
+                 GN_BWD_OPS_PER_ELEMENT * elems, "float32")
 
 
 def resize_bound(n, ch, cw, oh, ow, c) -> tuple[float, str]:
@@ -578,10 +624,12 @@ def _gn_body(x, groups) -> dict:
 
 
 def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0,
-             offset=0):
+             offset=0, zero_group=False):
     """One GroupNorm case: the kernel launched twice on the same input
     (equal bit for bit) against the plain version. ``offset`` elements
-    shift x's base pointer off its allocation's alignment."""
+    shift x's base pointer off its allocation's alignment; ``zero_group``
+    sets the second group of every sample and its bias to 0 (the group
+    normalises to exactly 0, the ReLU's tie)."""
     import torch
 
     from mmlspark_tpu_torch.ops import group_norm as gn
@@ -591,6 +639,10 @@ def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0,
     x = x[offset:].view(shape)
     scale = torch.randn(shape[-1], generator=gen, device="cuda")
     bias = torch.randn(shape[-1], generator=gen, device="cuda")
+    if zero_group:
+        cg = shape[-1] // groups
+        x[..., cg:2 * cg] = 0
+        bias[cg:2 * cg] = 0
     body = _gn_body(x, groups)
     before = gn.cluster_launches
     got = gn.group_norm(x, scale, bias, groups, relu=relu)
@@ -618,17 +670,77 @@ def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0,
     row = {"phase": "kernel", "kernel": "group_norm", "shape": list(shape),
            "groups": groups, "relu": relu,
            "dtype": str(dtype).replace("torch.", ""), "center": center,
-           "spread": spread, "storage_offset": offset, **body,
+           "spread": spread, "storage_offset": offset,
+           "zero_group": zero_group, **body,
            "bitwise_repeat": repeat, "max_abs_err": float(diff.max()),
            "tol": tol}
     return row, ok, (x, scale, bias)
 
 
+def _gn_bwd_case(x, scale, bias, groups, relu, gen, rel, zero_group=False):
+    """The backward kernel on one case's inputs against its plain version
+    (the closed form): launched with ``dy`` contiguous and again with
+    ``dy`` as a strided view (which the wrapper copies), equal bit for bit;
+    each output within ``backward_error_bound`` at ``rel`` (plus one bf16
+    step for a bf16 dx). Returns (row, ok, dy)."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    dtype = x.dtype
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    # dy as autograd may hand it over: NCHW-contiguous, seen as NHWC
+    strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    before = (gn.backward_launches, gn.backward_dy_copies)
+    got = gn._group_norm_bwd_cuda(dy, x, scale, bias, groups,
+                                  gn.DEFAULT_EPS, relu)
+    again = gn._group_norm_bwd_cuda(strided, x, scale, bias, groups,
+                                    gn.DEFAULT_EPS, relu)
+    torch.cuda.synchronize()
+    check((gn.backward_launches, gn.backward_dy_copies)
+          == (before[0] + 2, before[1] + 1),
+          f"backward launches and dy copies {before} -> "
+          f"{(gn.backward_launches, gn.backward_dy_copies)}, expected +2, +1")
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    check(repeat, f"two backward launches on the same input differ: "
+                  f"{tuple(x.shape)} {dtype}")
+    want = gn.group_norm_backward_reference(dy, x, scale, bias, groups,
+                                            relu=relu)
+    exact = None
+    if zero_group:
+        cg = x.shape[-1] // groups
+        exact = torch.zeros(x.shape, dtype=torch.bool, device="cuda")
+        exact[..., cg:2 * cg] = True
+    bounds = gn.backward_error_bound(dy, x, scale, bias, groups, rel,
+                                     relu=relu, exact=exact)
+    ok, errs, ratios = True, {}, {}
+    for name, a, b, bnd in zip(("dx", "dscale", "dbias"), got, want,
+                               bounds):
+        check(a.dtype == (dtype if name == "dx" else torch.float32)
+              and a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"backward {name}: {a.dtype} {tuple(a.shape)}, finite "
+              f"{bool(torch.isfinite(a).all())}")
+        if name == "dx" and dtype == torch.bfloat16:
+            bnd = bnd + GN_TOL_BF16_REL * b.float().abs()
+        diff = (a.float() - b.float()).abs()
+        ok = ok and bool((diff <= bnd).all())
+        errs[name] = float(diff.max())
+        ratios[name] = float((diff / bnd.clamp_min(1e-30)).max())
+    row = {"phase": "kernel", "kernel": "group_norm_backward",
+           "shape": list(x.shape), "groups": groups, "relu": relu,
+           "dtype": str(dtype).replace("torch.", ""),
+           "zero_group": zero_group, "bitwise_repeat": repeat,
+           "max_abs_err": max(errs.values()), "abs_err": errs,
+           "err_over_bound": ratios, "rel": rel,
+           "tol": "backward_error_bound(rel) + one bf16 step of a bf16 dx"}
+    return row, ok, dy
+
+
 def phase_group_norm() -> dict:
-    """The GroupNorm kernel against its plain version at every ResNet-50
-    shape and the edge cases; times at N=64 bf16 (L2 warm and flushed).
-    Every bf16 site must take the cluster body. Returns the per-forward
-    sums over the 53 sites and the largest error."""
+    """The GroupNorm forward and backward kernels against their plain
+    versions at every ResNet-50 shape and the edge cases; times at N=64
+    bf16 (L2 warm and flushed). Every bf16 site must take the cluster
+    body. Returns the per-forward sums over the 53 sites and the largest
+    error, forward and (under ``backward``) backward."""
     import torch
     import torch.nn.functional as F
 
@@ -644,8 +756,18 @@ def phase_group_norm() -> dict:
         entry["relu"].add(relu)
     gen = torch.Generator(device="cuda").manual_seed(0)
     n = TRAIN_BATCH
-    worst = 0.0
-    per_shape = {}
+    worst = worst_bwd = worst_ratio = 0.0
+    per_shape, per_shape_bwd = {}, {}
+
+    def backward_case(x, scale, bias, groups, relu, spread, zero=False):
+        nonlocal worst_bwd, worst_ratio
+        rel = GN_BWD_REL if spread >= 1 else GN_BWD_REL_OFFSET
+        row, ok, dy = _gn_bwd_case(x, scale, bias, groups, relu, gen, rel,
+                                   zero)
+        worst_bwd = max(worst_bwd, row["max_abs_err"])
+        worst_ratio = max(worst_ratio, *row["err_over_bound"].values())
+        return row, ok, dy
+
     for (hwc, groups), entry in shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
             for relu in sorted(entry["relu"]):
@@ -657,6 +779,9 @@ def phase_group_norm() -> dict:
                     check(row["body"] == "cluster",
                           f"a ResNet-50 bf16 site took the {row['body']} "
                           f"body, not the cluster body: {row}")
+                brow, bok, dy = backward_case(x, scale, bias, groups, relu,
+                                              1.0)
+                brow["sites"] = entry["sites"]
                 timed = dtype == torch.bfloat16 and (hwc, groups) \
                     not in per_shape
                 if timed:
@@ -676,21 +801,50 @@ def phase_group_norm() -> dict:
                     row["library_ms"] = time_ms(
                         lambda: F.group_norm(xc, groups, sc, bc,
                                              gn.DEFAULT_EPS))
-                    # the kernel route's backward: the plain version
-                    # recomputed and differentiated
-                    g = torch.randn(x.shape, generator=gen,
-                                    device="cuda").to(dtype)
+                    # the autograd route: the plain version recomputed
+                    # and differentiated
                     row["backward_ms"] = time_ms(
-                        lambda: gn.group_norm_backward(g, x, scale, bias,
+                        lambda: gn.group_norm_backward(dy, x, scale, bias,
                                                        groups, relu=relu))
                     row["bound_ms"], row["bound_by"] = group_norm_bound(
                         n, *hwc, "bfloat16")
                     row["x_bound"] = row["ms"] / row["bound_ms"]
                     per_shape[(hwc, groups)] = row
+
+                    def bwd():
+                        gn._group_norm_bwd_cuda(dy, x, scale, bias, groups,
+                                                gn.DEFAULT_EPS, relu)
+                    brow["ms"] = time_ms(bwd)
+                    brow["ms_cold_l2"] = time_ms(bwd, flush_l2=True)
+                    brow["plain_ms"] = time_ms(
+                        lambda: gn.group_norm_backward_reference(
+                            dy, x, scale, bias, groups, relu=relu))
+                    brow["autograd_ms"] = row["backward_ms"]
+                    # F.group_norm's autograd backward on the same view
+                    # (no ReLU), the graph kept so only the backward runs
+                    xg = xc.detach().requires_grad_()
+                    sg = sc.detach().requires_grad_()
+                    bg = bc.detach().requires_grad_()
+                    out = F.group_norm(xg, groups, sg, bg, gn.DEFAULT_EPS)
+                    dyc = dy.permute(0, 3, 1, 2)
+                    brow["library_ms"] = time_ms(
+                        lambda: torch.autograd.grad(out, (xg, sg, bg), dyc,
+                                                    retain_graph=True))
+                    del out, xg, sg, bg
+                    brow["bound_ms"], brow["bound_by"] = \
+                        group_norm_backward_bound(n, *hwc, "bfloat16")
+                    brow["x_bound"] = brow["ms"] / brow["bound_ms"]
+                    brow["x_library"] = brow["ms"] / brow["library_ms"]
+                    per_shape_bwd[(hwc, groups)] = brow
                 emit(row)
+                emit(brow)
                 check(ok, f"group_norm kernel differs from its plain "
                           f"version past tolerance on {row}")
-                del x, scale, bias
+                check(bok, f"group_norm backward kernel differs from its "
+                           f"plain version past tolerance on {brow}")
+                del x, scale, bias, dy
+    # shape, groups, relu, dtype, center, spread, storage offset, and a
+    # group of zeros with bias 0 (the ReLU's tie)
     edge = [((4, 28, 28, 256), 32, True, torch.float32, 200.0, 0.02, 0),
             ((2, 9, 9, 64), 32, True, torch.bfloat16, 0.0, 1.0, 0),
             ((n, 13, 11, 96), 32, False, torch.bfloat16, 0.0, 1.0, 0),
@@ -700,14 +854,26 @@ def phase_group_norm() -> dict:
             ((n, 14, 14, 256), 32, True, torch.bfloat16, 0.0, 1.0, 1),
             ((n, 28, 28, 128), 32, False, torch.float32, 0.0, 1.0, 1),
             ((4, 112, 112, 128), 32, True, torch.float32, 0.0, 1.0, 0)]
-    for shape, groups, relu, dtype, center, spread, offset in edge:
-        row, ok, _ = _gn_case(shape, groups, relu, dtype, gen, center,
-                              spread, offset)
+    edge = [e + (False,) for e in edge] + [
+        ((n, 28, 28, 128), 32, True, torch.bfloat16, 0.0, 1.0, 0, True),
+        ((8, 56, 56, 64), 32, True, torch.float32, 0.0, 1.0, 0, True)]
+    for shape, groups, relu, dtype, center, spread, offset, zero in edge:
+        row, ok, (x, scale, bias) = _gn_case(shape, groups, relu, dtype,
+                                             gen, center, spread, offset,
+                                             zero)
         worst = max(worst, row["max_abs_err"])
         row["edge"] = True
         emit(row)
         check(ok, f"group_norm kernel differs from its plain version past "
                   f"tolerance on {row}")
+        brow, bok, _ = backward_case(x, scale, bias, groups, relu, spread,
+                                     zero)
+        brow.update(edge=True, center=center, spread=spread,
+                    storage_offset=offset)
+        emit(brow)
+        check(bok, f"group_norm backward kernel differs from its plain "
+                   f"version past tolerance on {brow}")
+        del x, scale, bias
     total = {key: sum(r[key] * r["sites"] for r in per_shape.values())
              for key in ("ms", "ms_cold_l2", "plain_ms", "library_ms",
                          "bound_ms", "backward_ms")}
@@ -727,7 +893,24 @@ def phase_group_norm() -> dict:
                for r in per_shape.values()),
            "max_abs_err": worst}
     emit(out)
-    return {**total, "bound_by": "bytes", "max_abs_err": worst}
+    total_bwd = {key: sum(r[key] * r["sites"]
+                          for r in per_shape_bwd.values())
+                 for key in ("ms", "ms_cold_l2", "plain_ms", "autograd_ms",
+                             "library_ms", "bound_ms")}
+    emit({"phase": "kernel", "kernel": "group_norm_backward",
+          "per_forward": "sum over the 53 sites of one ResNet-50 "
+                         "backward, N=64, bf16",
+          **total_bwd, "x_bound": total_bwd["ms"] / total_bwd["bound_ms"],
+          "x_bound_cold_l2": total_bwd["ms_cold_l2"]
+          / total_bwd["bound_ms"],
+          "x_library": total_bwd["ms"] / total_bwd["library_ms"],
+          "x_autograd": total_bwd["ms"] / total_bwd["autograd_ms"],
+          "cuda_launches_per_forward": len(GN_BWD_KERNEL_NAMES)
+          * GN_SITES_RESNET50,
+          "max_abs_err": worst_bwd, "max_err_over_bound": worst_ratio})
+    return {**total, "bound_by": "bytes", "max_abs_err": worst,
+            "backward": {**total_bwd, "bound_by": "bytes",
+                         "max_abs_err": worst_bwd}}
 
 
 def _resize_case(n, h, w, c, crop, out_hw, gen, offsets=None):
@@ -1287,12 +1470,15 @@ def _update_gap(a: dict, b: dict, init: dict) -> dict:
 def _step_breakdown(batch) -> dict:
     """Where one training step at N=64 through the kernels spends its
     time. ``wall``: host clock around 5 steps, each ended by a
-    synchronise. ``forward``/``forward_backward``: CUDA events (median of
-    10), which count the device waiting on the host too. Then one step
-    under ``torch.profiler``: the device's busy time (kernels and copies),
-    its idle share of ``wall``, the device time of the GroupNorm forward
-    kernels, of the GroupNorm backward (the kernels launched inside its
-    53 calls) and of the resize kernel, and the busiest kernels."""
+    synchronise (and images/s from it). ``forward``/``forward_backward``:
+    CUDA events (median of 10), which count the device waiting on the
+    host too. Then one step under ``torch.profiler``: the device's busy
+    time (kernels and copies), its idle share of ``wall``, the device time
+    of the GroupNorm forward kernels, of the GroupNorm backward kernels
+    (in all and by kernel) and of the resize kernel, and the busiest
+    kernels. The traced step must call the backward kernel's wrapper 53
+    times, launch each of its five kernels 53 times, and call no plain or
+    autograd GroupNorm route."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1324,21 +1510,40 @@ def _step_breakdown(batch) -> dict:
         torch.cuda.synchronize()
     out["wall"] = (time.perf_counter() - t0) / 5 * 1e3
 
-    inner = gn_op.group_norm_backward
-    gn_bwd = "chip_smoke.group_norm_backward"
+    out["images_per_s"] = TRAIN_BATCH / out["wall"] * 1e3
+
+    inner = gn_op._group_norm_bwd_cuda
+    gn_bwd = "chip_smoke.group_norm_backward_kernel"
 
     def marked_backward(*args, **kwargs):
         with record_function(gn_bwd):
             return inner(*args, **kwargs)
 
-    gn_op.group_norm_backward = marked_backward
+    # the plain routes, which the kernel route must not reach
+    plain = {name: getattr(gn_op, name)
+             for name in ("group_norm_backward",
+                          "group_norm_backward_reference",
+                          "group_norm_reference")}
+    plain_calls = dict.fromkeys(plain, 0)
+
+    def counted(name):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+
+    gn_op._group_norm_bwd_cuda = marked_backward
+    for name in plain:
+        setattr(gn_op, name, counted(name))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             trainer.train_step(dx, dy, dw)
             torch.cuda.synchronize()
     finally:
-        gn_op.group_norm_backward = inner
+        gn_op._group_norm_bwd_cuda = inner
+        for name, fn in plain.items():
+            setattr(gn_op, name, fn)
     events = prof.key_averages()
     # device work: the kernel and copy events (a host op's own device
     # time repeats its kernels'; the range's device-side annotation spans
@@ -1347,8 +1552,11 @@ def _step_breakdown(batch) -> dict:
     marked = [e for e in events
               if e.key == gn_bwd and e.device_type == DeviceType.CPU]
     check(len(marked) == 1 and marked[0].count == GN_SITES_RESNET50,
-          f"GroupNorm backward ranges in the profiled step: "
+          f"GroupNorm backward kernel calls in the profiled step: "
           f"{[(str(e.device_type), e.count) for e in marked]}")
+    check(not any(plain_calls.values()),
+          f"the profiled step reached a plain GroupNorm route: "
+          f"{plain_calls}")
     device = [(e.key, e.self_device_time_total / 1e3, e.count)
               for e in events
               if e.device_type == DeviceType.CUDA and e.key != gn_bwd
@@ -1356,12 +1564,20 @@ def _step_breakdown(batch) -> dict:
     busy = sum(ms for _, ms, _ in device)
     gn_fwd = [(ms, count) for key, ms, count in device
               if any(k in key for k in GN_KERNEL_NAMES)]
+    bwd_kernels = {name: [sum(ms for key, ms, _ in device if name in key),
+                          sum(c for key, _, c in device if name in key)]
+                   for name in GN_BWD_KERNEL_NAMES}
     out["profile"] = {
         "device_busy": busy,
         "device_idle_share_of_wall": 1 - busy / out["wall"],
+        "wall": out["wall"], "images_per_s": out["images_per_s"],
         "group_norm_forward_kernels": sum(ms for ms, _ in gn_fwd),
         "group_norm_forward_kernel_launches": sum(c for _, c in gn_fwd),
-        "group_norm_backward": marked[0].device_time_total / 1e3,
+        # the backward's five kernels by name: the wrapper's host range
+        # gets no device time for kernels launched through ctypes
+        "group_norm_backward": sum(ms for ms, _ in bwd_kernels.values()),
+        "group_norm_backward_by_kernel": bwd_kernels,
+        "plain_group_norm_calls": plain_calls,
         "resize_kernel": sum(ms for key, ms, _ in device
                              if "resize_kernel" in key),
         "top_kernels": [[key[:80], ms, n] for key, ms, n in
@@ -1370,6 +1586,9 @@ def _step_breakdown(batch) -> dict:
           == GN_SITES_RESNET50,
           f"{out['profile']['group_norm_forward_kernel_launches']} GroupNorm "
           "forward kernels in the profiled step, expected one a site (53)")
+    check(all(c == GN_SITES_RESNET50 for _, c in bwd_kernels.values()),
+          f"GroupNorm backward kernels in the profiled step: {bwd_kernels}, "
+          "expected each once a site (53)")
     del trainer, module
     return out
 
@@ -1403,14 +1622,17 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     # the main path: launch counts from 0 just before, read just after
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gn_op.launches = 0
+    gn_op.launches = gn_op.backward_launches = 0
+    gn_op.backward_dy_copies = 0
     rs_op.launches = 0
     t_fit = time.perf_counter()
     trainer.fit_arrays(x, y)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = {"group_norm": gn_op.launches,
+                "group_norm_backward": gn_op.backward_launches,
                 "fused_resize_norm": rs_op.launches}
+    dy_copies = gn_op.backward_dy_copies
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(trainer.global_step == steps, f"{trainer.global_step} steps, "
                                         f"expected {steps}")
@@ -1420,6 +1642,9 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     check(launches["group_norm"] == GN_SITES_RESNET50 * steps,
           f"{launches['group_norm']} group_norm launches in {steps} steps, "
           "expected 53 per step")
+    check(launches["group_norm_backward"] == GN_SITES_RESNET50 * steps,
+          f"{launches['group_norm_backward']} group_norm backward launches "
+          f"in {steps} steps, expected 53 per step")
     check(launches["fused_resize_norm"] == steps,
           f"{launches['fused_resize_norm']} resize launches in {steps} "
           "steps, expected 1 per step")
@@ -1437,18 +1662,19 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     # GroupNorm output one bf16 step apart is carried on by every layer
     # after it, so each bf16 route is held against the float32 step
     first = next(_batches(x, y, TRAIN_BATCH, cfg.seed))
-    gn_op.launches = rs_op.launches = 0
+    gn_op.launches = gn_op.backward_launches = rs_op.launches = 0
     loss_k32, params_k32 = _first_step("auto", "auto", init, first,
                                        torch.float32)
     loss_k, params_k = _first_step("auto", "auto", init, first)
-    check(gn_op.launches == 2 * GN_SITES_RESNET50 and rs_op.launches == 2,
-          "the kernel route of the first step missed a kernel")
-    launched = (gn_op.launches, rs_op.launches)
+    launched = (gn_op.launches, gn_op.backward_launches, rs_op.launches)
+    check(launched == (2 * GN_SITES_RESNET50, 2 * GN_SITES_RESNET50, 2),
+          f"the kernel route of the first step missed a kernel: "
+          f"{launched}")
     loss_p32, params_p32 = _first_step("torch", "torch", init, first,
                                        torch.float32)
     loss_p, params_p = _first_step("torch", "torch", init, first)
-    check((gn_op.launches, rs_op.launches) == launched,
-          "the plain route launched a kernel")
+    check((gn_op.launches, gn_op.backward_launches, rs_op.launches)
+          == launched, "the plain route launched a kernel")
     gap32 = _update_gap(params_k32, params_p32, init)
     gap_k = _update_gap(params_k, params_p32, init)
     gap_p = _update_gap(params_p, params_p32, init)
@@ -1468,8 +1694,11 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
            "input_wait_s": stats["input_wait_s"],
            "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "group_norm_backward_dy_copies_per_step": dy_copies / steps,
            "group_norm_share_of_step": None if gn is None
            else gn["ms"] / step_med,
+           "group_norm_backward_share_of_step": None if gn is None
+           else gn["backward"]["ms"] / step_med,
            "resize_share_of_step": None if rs is None
            else rs["ms"] / step_med,
            "peak_memory_gb": peak_gb,
@@ -2051,6 +2280,17 @@ def main() -> int:
                 "ms_cold_l2": gn["ms_cold_l2"],
                 "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
                 "bound_by": gn["bound_by"], "library_ms": gn["library_ms"]})
+            bwd = gn["backward"]
+            kernels.append({
+                "name": "group_norm_backward", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/group_norm.cu",
+                "replaces": "mmlspark_tpu/ops/group_norm.py:168",
+                "launches": launches["group_norm_backward"],
+                "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+                "ms_cold_l2": bwd["ms_cold_l2"],
+                "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+                "bound_by": bwd["bound_by"],
+                "library_ms": bwd["library_ms"]})
         if rs:
             kernels.append({
                 "name": "fused_resize_norm", "route": "cuda",

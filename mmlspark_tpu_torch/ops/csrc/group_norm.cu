@@ -1,5 +1,5 @@
-// GroupNorm(+ReLU) forward over NHWC for Hopper (sm_90a): f32 statistics
-// with a centred variance, output in the input type.
+// GroupNorm(+ReLU) forward and backward over NHWC for Hopper (sm_90a): f32
+// statistics with a centred variance, output in the input type.
 //
 // Replaces mmlspark_tpu/ops/group_norm.py:_group_norm_fwd_pallas (the
 // Pallas kernel _gn_kernel). Same function: x [N, H*W, C] (bf16 or f32),
@@ -78,6 +78,31 @@
 // Neither body allocates: the caller passes the output (and the scratch
 // of the three-launch body) and the stream. Every entry point returns a
 // cudaError_t (0 = launched).
+//
+// The backward (group_norm_bwd, five launches a call) replaces the
+// backward of mmlspark_tpu/ops/group_norm.py:_gn_bwd, a jax.vjp of the
+// reference, in closed form. Per (sample n, group g) of M = H*W*cg values,
+// with the forward's statistics (mean, r = rsqrt(var + eps)):
+//   xhat = (x - mean) * r, y = xhat * scale + bias,
+//   gy = dy * relu'(y) (0.5 at y == 0, as jnp.maximum gives),
+//   A[n,c] = sum_hw gy, B[n,c] = sum_hw gy * xhat,
+//   c1 = sum_{c in g} scale[c] * A[n,c] / M, c2 likewise with B,
+//   dx = r * (gy * scale - c1 - xhat * c2), dbias = sum_n A, dscale = sum_n B.
+// What bounds it on an H100: x and dy read once and dx written once (6
+// bytes an element in bf16), memory at 3.35 TB/s; about 15 f32 operations
+// an element. The design reads x three times and dy twice (about 12 bytes
+// an element), every pass over the same tiles of rows (grid: tiles x
+// samples): gn_bwd_stats takes each tile's moments per group in one pass
+// (sums shifted by a value of the tile, so that a large mean costs no
+// precision) and the tiled body's gn_merge merges them into (mean, rstd);
+// gn_bwd_reduce sums gy and gy*xhat per channel in registers over its
+// rows in row order, then its row threads in order, into float2 partials
+// [N, tiles, C]; gn_bwd_merge (one block a group) folds the tiles in tile
+// order into A and B, forms c1 and c2 per sample in channel order and
+// dscale and dbias in sample order; gn_bwd_apply reads x and dy again and
+// writes dx. Loads and stores move words of 16 bytes where C * elt and
+// the pointers allow (else 8, 4 or 2). No float atomics: two launches on
+// one input give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -755,5 +780,433 @@ extern "C" int group_norm_cluster_occupancy(int dtype, int vec_bytes, int k,
     using I = decltype(inst);
     return cluster_occupancy<typename I::type, I::bytes>(k, threads, smem,
                                                          clusters);
+  });
+}
+
+namespace {
+
+// ---------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMergeThreads = 512;
+
+// the ReLU's derivative at y, as jnp.maximum(y, 0) gives it: 0.5 at a tie
+__device__ __forceinline__ float relu_grad(float y) {
+  return y > 0.f ? 1.f : (y == 0.f ? 0.5f : 0.f);
+}
+
+// the sum over a warp's lanes by a fixed shuffle tree, in every lane
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return __shfl_sync(0xffffffffu, v, 0);
+}
+
+// xhat and the masked gradient of one element; the reduce and apply
+// passes call this same code, so both see the same mask
+__device__ __forceinline__ void bwd_element(float xv, float g, float m,
+                                            float r, float s, float b,
+                                            int relu, float& xh,
+                                            float& gy) {
+  xh = (xv - m) * r;
+  gy = relu ? g * relu_grad(fmaf(xh, s, b)) : g;
+}
+
+// The statistics of one tile of rows, per group: (mean, M2) as gn_merge
+// takes them, in one pass of word loads. Each channel's values are summed
+// shifted by the tile's first value of that channel, K_c (near the mean,
+// so x - K_c is exact and small at any offset): S1 = sum(x - K_c),
+// S2 = sum((x - K_c)^2) per thread over its rows in row order, then the
+// row threads in order. A warp then takes a group, lane l its channels
+// l, l + 32, ... in order and then a fixed shuffle tree: with
+// d_c = (K_c - K_0) + S1/n and M2_c = S2 - S1^2/n over the tile's n rows,
+// mean = K_0 + mean_c(d_c) and M2 = sum_c(M2_c + n (d_c - mean_c(d))^2).
+// grid (row tiles, samples); kBwdThreads threads as ct vector threads x
+// rt row threads. Dynamic shared memory: [rt][C] float2, then K [C].
+template <typename T, int B>
+__global__ void __launch_bounds__(kBwdThreads)
+    gn_bwd_stats(const T* __restrict__ x, float2* __restrict__ part, int HW,
+                 int C, int G, int tile_rows, int ntiles) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  extern __shared__ float2 sbuf[];
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  float* kbuf = reinterpret_cast<float*>(sbuf + (size_t)rt * C);
+  const int tx = tid % ct, ty = tid / ct;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int cg = C / G;
+  const int r0 = tile * tile_rows;
+  const int rows = min(tile_rows, HW - r0);
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* xs = reinterpret_cast<const W*>(x + base);
+  if (ty < rt) {
+    for (int cv = tx; cv < CV; cv += ct) {
+      float k[VEC], s1[VEC] = {}, s2[VEC] = {};
+      unpack<T, B>(xs[cv], k);
+      if (ty == 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) kbuf[cv * VEC + i] = k[i];
+      }
+#pragma unroll 4
+      for (int row = ty; row < rows; row += rt) {
+        float f[VEC];
+        unpack<T, B>(xs[(size_t)row * CV + cv], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          const float d = f[i] - k[i];
+          s1[i] += d;
+          s2[i] = fmaf(d, d, s2[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        sbuf[ty * C + cv * VEC + i] = make_float2(s1[i], s2[i]);
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += nthreads) {
+    float2 v = sbuf[c];
+    for (int j = 1; j < rt; ++j) {
+      const float2 w = sbuf[j * C + c];
+      v.x += w.x;
+      v.y += w.y;
+    }
+    sbuf[c] = v;
+  }
+  __syncthreads();
+  const float nr = (float)rows;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthreads >> 5;
+  for (int g = warp; g < G; g += nwarps) {
+    const int c0 = g * cg;
+    const float k0 = kbuf[c0];
+    float d = 0.f;
+    for (int j = lane; j < cg; j += 32)
+      d += (kbuf[c0 + j] - k0) + sbuf[c0 + j].x / nr;
+    const float dbar = warp_sum(d) / (float)cg;
+    float m2 = 0.f;
+    for (int j = lane; j < cg; j += 32) {
+      const float2 v = sbuf[c0 + j];
+      const float e = (kbuf[c0 + j] - k0) + v.x / nr - dbar;
+      m2 += (v.y - v.x * (v.x / nr)) + nr * e * e;
+    }
+    m2 = warp_sum(m2);
+    if (lane == 0)
+      part[((size_t)n * ntiles + tile) * G + g] = make_float2(k0 + dbar, m2);
+  }
+}
+
+// grid (row tiles, samples); kBwdThreads threads as ct vector threads x
+// rt row threads. Dynamic shared memory: [rt][C] float2.
+template <typename T, int B>
+__global__ void __launch_bounds__(kBwdThreads)
+    gn_bwd_reduce(const T* __restrict__ x, const T* __restrict__ dy,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ bias,
+                  const float2* __restrict__ stats,
+                  float2* __restrict__ part, int HW, int C, int G,
+                  int tile_rows, int ntiles, int relu) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  extern __shared__ float2 sbuf[];
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  const int tx = tid % ct, ty = tid / ct;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int cg = C / G;
+  const int r0 = tile * tile_rows;
+  const int rows = min(tile_rows, HW - r0);
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* xs = reinterpret_cast<const W*>(x + base);
+  const W* gs = reinterpret_cast<const W*>(dy + base);
+  if (ty < rt) {
+    for (int cv = tx; cv < CV; cv += ct) {
+      float m[VEC], r[VEC], s[VEC], b[VEC], a[VEC] = {}, q[VEC] = {};
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const int c = cv * VEC + i;
+        const float2 st = stats[n * G + c / cg];
+        m[i] = st.x;
+        r[i] = st.y;
+        s[i] = scale[c];
+        b[i] = bias[c];
+      }
+#pragma unroll 2
+      for (int row = ty; row < rows; row += rt) {
+        float f[VEC], g[VEC];
+        unpack<T, B>(xs[(size_t)row * CV + cv], f);
+        unpack<T, B>(gs[(size_t)row * CV + cv], g);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float xh, gy;
+          bwd_element(f[i], g[i], m[i], r[i], s[i], b[i], relu, xh, gy);
+          a[i] += gy;
+          q[i] = fmaf(gy, xh, q[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        sbuf[ty * C + cv * VEC + i] = make_float2(a[i], q[i]);
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < C; c += nthreads) {
+    float2 v = sbuf[c];
+    for (int j = 1; j < rt; ++j) {
+      const float2 w = sbuf[j * C + c];
+      v.x += w.x;
+      v.y += w.y;
+    }
+    part[((size_t)n * ntiles + tile) * C + c] = v;
+  }
+}
+
+// grid: one block a group. Folds each (n, c) of the group over its tiles
+// in tile order into A, B (left in tile 0's slot of part), then c1, c2
+// per sample (channels in order) and dbias, dscale per channel (samples
+// in order).
+__global__ void __launch_bounds__(kBwdMergeThreads)
+    gn_bwd_merge(float2* __restrict__ part, const float* __restrict__ scale,
+                 float2* __restrict__ coef, float* __restrict__ dscale,
+                 float* __restrict__ dbias, int N, int HW, int C, int G,
+                 int ntiles) {
+  const int g = blockIdx.x, cg = C / G, c0 = g * cg;
+  const size_t nstride = (size_t)ntiles * C;
+  for (int p = threadIdx.x; p < N * cg; p += blockDim.x) {
+    float2* pp = part + (p / cg) * nstride + c0 + p % cg;
+    float2 v = pp[0];
+#pragma unroll 4
+    for (int t = 1; t < ntiles; ++t) {
+      const float2 w = pp[(size_t)t * C];
+      v.x += w.x;
+      v.y += w.y;
+    }
+    pp[0] = v;
+  }
+  __syncthreads();
+  const float count = (float)HW * (float)cg;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float2* pp = part + n * nstride + c0;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 16
+    for (int j = 0; j < cg; ++j) {
+      const float s = scale[c0 + j];
+      const float2 v = pp[j];
+      s1 = fmaf(s, v.x, s1);
+      s2 = fmaf(s, v.y, s2);
+    }
+    coef[n * G + g] = make_float2(s1 / count, s2 / count);
+  }
+  for (int j = threadIdx.x; j < cg; j += blockDim.x) {
+    float a = 0.f, b = 0.f;
+#pragma unroll 16
+    for (int n = 0; n < N; ++n) {
+      const float2 v = part[n * nstride + c0 + j];
+      a += v.x;
+      b += v.y;
+    }
+    dbias[c0 + j] = a;
+    dscale[c0 + j] = b;
+  }
+}
+
+// grid (row tiles, samples), the threads as in gn_bwd_reduce
+template <typename T, int B>
+__global__ void __launch_bounds__(kBwdThreads)
+    gn_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float2* __restrict__ stats,
+                 const float2* __restrict__ coef, T* __restrict__ dx,
+                 int HW, int C, int G, int tile_rows, int relu) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  const int tx = tid % ct, ty = tid / ct;
+  if (ty >= rt) return;
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int cg = C / G;
+  const int r0 = tile * tile_rows;
+  const int rows = min(tile_rows, HW - r0);
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* xs = reinterpret_cast<const W*>(x + base);
+  const W* gs = reinterpret_cast<const W*>(dy + base);
+  W* out = reinterpret_cast<W*>(dx + base);
+  for (int cv = tx; cv < CV; cv += ct) {
+    float m[VEC], r[VEC], s[VEC], b[VEC], c1[VEC], c2[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = cv * VEC + i;
+      const float2 st = stats[n * G + c / cg];
+      const float2 k = coef[n * G + c / cg];
+      m[i] = st.x;
+      r[i] = st.y;
+      s[i] = scale[c];
+      b[i] = bias[c];
+      c1[i] = k.x;
+      c2[i] = k.y;
+    }
+#pragma unroll 2
+    for (int row = ty; row < rows; row += rt) {
+      float f[VEC], g[VEC];
+      unpack<T, B>(xs[(size_t)row * CV + cv], f);
+      unpack<T, B>(gs[(size_t)row * CV + cv], g);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float xh, gy;
+        bwd_element(f[i], g[i], m[i], r[i], s[i], b[i], relu, xh, gy);
+        f[i] = r[i] * fmaf(-xh, c2[i], fmaf(gy, s[i], -c1[i]));
+      }
+      out[(size_t)row * CV + cv] = pack<T, B>(f);
+    }
+  }
+}
+
+// The shared memory of the backward's tile kernels at C channels, with
+// their limits set where it passes the default 48 KB: [rt][C] float2 for
+// gn_bwd_reduce (*smem), and K [C] after it for gn_bwd_stats
+// (*stats_smem).
+template <typename T, int B>
+int bwd_smem(int C, size_t* smem, size_t* stats_smem) {
+  constexpr int VEC = B / (int)sizeof(T);
+  if (C < VEC || C % VEC) return (int)cudaErrorInvalidValue;
+  const int CV = C / VEC;
+  const int brt = kBwdThreads / (CV < kBwdThreads ? CV : kBwdThreads);
+  *smem = (size_t)brt * C * sizeof(float2);
+  *stats_smem = *smem + (size_t)C * sizeof(float);
+  if (*stats_smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  if (*stats_smem > kDefaultSmem)
+    e = cudaFuncSetAttribute(gn_bwd_stats<T, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*stats_smem);
+  if (e == cudaSuccess && *smem > kDefaultSmem)
+    e = cudaFuncSetAttribute(gn_bwd_reduce<T, B>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)*smem);
+  return (int)e;
+}
+
+// CTAs of the backward's tile kernels the card holds at once: its SMs
+// times the fewest of gn_bwd_stats, gn_bwd_reduce and gn_bwd_apply an SM
+// holds at C channels
+template <typename T, int B>
+int bwd_resident(int C, int* ctas) {
+  size_t smem, stats_smem;
+  int e = bwd_smem<T, B>(C, &smem, &stats_smem);
+  if (e != 0) return e;
+  int device = 0, sms = 0, a = 0, b = 0, c = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &a, gn_bwd_stats<T, B>, kBwdThreads, stats_smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, gn_bwd_reduce<T, B>, kBwdThreads, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &c, gn_bwd_apply<T, B>, kBwdThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  *ctas = sms * min(a, min(b, c));
+  return 0;
+}
+
+template <typename T, int B>
+int launch_bwd(const void* x, const void* dy, const float* scale,
+               const float* bias, void* dx, float* dscale, float* dbias,
+               float* part, float* stats, float* bpart, float* coef, int N,
+               int HW, int C, int G, int tile_rows, int ntiles, int relu,
+               float eps, cudaStream_t stream) {
+  // the tiling must cover every row, none with an empty tile
+  if (N < 1 || HW < 1 || G < 1 || C % G || tile_rows < 1 ||
+      (long)tile_rows * ntiles < HW || (long)tile_rows * (ntiles - 1) >= HW)
+    return (int)cudaErrorInvalidValue;
+  const int cg = C / G;
+  size_t smem, stats_smem;
+  int e = bwd_smem<T, B>(C, &smem, &stats_smem);
+  if (e != 0) return e;
+  const dim3 grid(ntiles, N);
+
+  // 1-2: (mean, rstd) per (sample, group): the tiles' moments, merged
+  gn_bwd_stats<T, B><<<grid, kBwdThreads, stats_smem, stream>>>(
+      static_cast<const T*>(x), reinterpret_cast<float2*>(part), HW, C, G,
+      tile_rows, ntiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int NG = N * G;
+  const int merge_threads = 256;
+  gn_merge<<<(NG * 32 + merge_threads - 1) / merge_threads, merge_threads, 0,
+             stream>>>(reinterpret_cast<const float2*>(part),
+                       reinterpret_cast<float2*>(stats), NG, G, HW, cg,
+                       tile_rows, ntiles, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 3: per-tile, per-channel sums of gy and gy * xhat
+  const float2* st = reinterpret_cast<const float2*>(stats);
+  gn_bwd_reduce<T, B><<<grid, kBwdThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias, st,
+      reinterpret_cast<float2*>(bpart), HW, C, G, tile_rows, ntiles, relu);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 4: A, B, c1, c2, dscale, dbias
+  gn_bwd_merge<<<G, kBwdMergeThreads, 0, stream>>>(
+      reinterpret_cast<float2*>(bpart), scale,
+      reinterpret_cast<float2*>(coef), dscale, dbias, N, HW, C, G, ntiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // 5: dx
+  gn_bwd_apply<T, B><<<grid, kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), scale, bias, st,
+      reinterpret_cast<const float2*>(coef), static_cast<T*>(dx), HW, C, G,
+      tile_rows, relu);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The backward of GroupNorm(+ReLU): dx (x's type) and float32 dscale,
+// dbias [C]. dtype: 0 = float32, 1 = bfloat16; vec_bytes: the width of
+// every load and store of x, dy and dx (16, 8, 4, or 2 for bfloat16),
+// which C * elt and the three pointers must be multiples of. Every pass
+// cuts each sample into ntiles tiles of tile_rows rows. Scratch from the
+// caller, all float32: part [N, ntiles, G, 2] and stats [N, G, 2] of the
+// statistics, bpart [N, ntiles, C, 2] of the sums and coef [N, G, 2].
+// Five launches on `stream`.
+extern "C" int group_norm_bwd(const void* x, const void* dy,
+                              const float* scale, const float* bias,
+                              void* dx, float* dscale, float* dbias,
+                              float* part, float* stats, float* bpart,
+                              float* coef, int dtype, int vec_bytes, int N,
+                              int HW, int C, int G, int tile_rows,
+                              int ntiles, int relu, float eps,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    return launch_bwd<typename I::type, I::bytes>(
+        x, dy, scale, bias, dx, dscale, dbias, part, stats, bpart, coef, N,
+        HW, C, G, tile_rows, ntiles, relu, eps, s);
+  });
+}
+
+// CTAs of the backward's tile kernels the current card holds at once
+// (into *ctas), for C channels of dtype in words of vec_bytes
+extern "C" int group_norm_bwd_resident(int dtype, int vec_bytes, int C,
+                                       int* ctas) {
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    return bwd_resident<typename I::type, I::bytes>(C, ctas);
   });
 }

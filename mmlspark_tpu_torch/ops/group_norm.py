@@ -15,13 +15,19 @@ optional ReLU, and the output in the input's dtype.
   for CUDA tensors and the plain version for CPU tensors; ``"cuda"`` and
   ``"torch"`` force one or the other. A CUDA tensor under ``"auto"``
   reaches the kernel or raises; there is no size gate and no fallback.
-* The kernel runs the forward only. Its backward recomputes the plain
-  version under autograd and differentiates that (the JAX package's
-  ``_gn_bwd`` does the same with ``jax.vjp``), so the gradients are the
-  plain version's.
-* ``launches`` counts calls that reach ``ops/csrc/group_norm.cu``: one per
-  ``group_norm`` call, whichever body runs; ``cluster_launches`` counts
-  those that ran the cluster body.
+* The kernel route's backward is a kernel too (``group_norm_bwd`` in the
+  same file): the JAX package's ``_gn_bwd`` is ``jax.vjp`` of its
+  reference, and the kernel computes that vjp in closed form.
+  :func:`group_norm_backward_reference` is its plain version (the same
+  closed form in plain PyTorch, no autograd); :func:`group_norm_backward`
+  (the plain forward recomputed under autograd) stays as a measured
+  reference and nothing on the card's path calls it.
+* ``launches`` counts calls that reach ``ops/csrc/group_norm.cu``'s
+  forward: one per ``group_norm`` call, whichever body runs;
+  ``cluster_launches`` counts those that ran the cluster body;
+  ``backward_launches`` counts calls of the backward kernel (five CUDA
+  launches each) and ``backward_dy_copies`` the calls whose ``dy`` was not
+  contiguous in NHWC order and was copied first.
 
 The kernel file has two bodies, chosen by shape (:func:`cluster_plan`):
 
@@ -38,6 +44,16 @@ The kernel file has two bodies, chosen by shape (:func:`cluster_plan`):
   f32 at 112×112×128 (6.4 MB a sample). It needs f32 scratch for the
   tiles' partials and the statistics, which the wrapper allocates only
   for it.
+
+The backward cuts each sample into tiles of rows (:func:`backward_plan`)
+and passes over them four times: the tiles' moments per group
+(``gn_bwd_stats``, merged into the statistics by the tiled body's
+``gn_merge``), the sums of ``gy`` and ``gy·x̂`` per tile and channel
+(``gn_bwd_reduce``), those folded over the tiles, the groups' channels
+and the samples in a fixed order (``gn_bwd_merge``), and ``dx``
+(``gn_bwd_apply``): five launches, no float atomics, so two launches on
+one input give the same bits. At ``y == 0`` the ReLU passes half the
+gradient, as ``jnp.maximum`` does in the JAX package.
 
 The kernel takes ``x`` contiguous in NHWC order (an NCHW tensor in
 ``torch.channels_last`` seen through ``permute(0, 2, 3, 1)`` is that), in
@@ -84,10 +100,20 @@ _CLUSTER_THREADS = 256
 _SMS = 132
 _WIDEST_WORD = 16
 
-# launches of the CUDA kernel (either body) and of its cluster body;
-# reset by whoever reads them
+# the backward's tiles of rows: at least this many rows a tile (so the
+# float2 partials of a tile stay small against its rows); and the CTAs of
+# its tile kernels an H100 holds at once, estimated without the card
+# (three 256-thread CTAs an SM, the registers of the bf16 kernels)
+_BWD_MIN_ROWS = 16
+_BWD_RESIDENT = 3 * _SMS
+
+# launches of the CUDA kernel (either body) and of its cluster body, calls
+# of the backward kernel, and the backward's copies of a non-contiguous
+# dy; reset by whoever reads them
 launches = 0
 cluster_launches = 0
+backward_launches = 0
+backward_dy_copies = 0
 _count_lock = threading.Lock()
 
 
@@ -115,8 +141,104 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor,
     out = (xf - mean) * torch.rsqrt(var + eps)
     out = out.reshape(n, h, w, c) * scale + bias
     if relu:
-        out = torch.clamp_min(out, 0.0)
+        # torch.maximum passes half the gradient at a tie, as jnp.maximum
+        # does (clamp_min would pass all of it)
+        out = torch.maximum(out, out.new_zeros(()))
     return out.to(x.dtype)
+
+
+def _backward_terms(dy, x, scale, bias, num_groups: int, eps: float,
+                    relu: bool) -> dict:
+    """The closed form's float32 terms, each ``[N, H·W, G, cg]`` or
+    broadcastable to it: ``r``, ``xhat``, ``y``, ``gy`` (``dy`` times the
+    ReLU's derivative, 0.5 at ``y == 0``), ``s``, ``b``, and per (sample,
+    group) ``c1``, ``c2``; ``A``, ``B`` are ``[N, G, cg]``."""
+    n, h, w, c = x.shape
+    _validate_groups(c, num_groups)
+    cg = c // num_groups
+    shape = (n, h * w, num_groups, cg)
+    xf = x.float().reshape(shape)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    r = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * r
+    s = scale.float().reshape(1, 1, num_groups, cg)
+    b = bias.float().reshape(1, 1, num_groups, cg)
+    y = xhat * s + b
+    gy = dy.float().reshape(shape)
+    if relu:
+        gy = gy * torch.where(y > 0, 1.0, torch.where(y == 0, 0.5, 0.0))
+    a_sum = gy.sum(dim=1)
+    b_sum = (gy * xhat).sum(dim=1)
+    m = float(h * w * cg)
+    c1 = (s[0] * a_sum).sum(dim=-1, keepdim=True)[:, None] / m
+    c2 = (s[0] * b_sum).sum(dim=-1, keepdim=True)[:, None] / m
+    return {"r": r, "xhat": xhat, "y": y, "gy": gy, "s": s, "b": b,
+            "c1": c1, "c2": c2, "A": a_sum, "B": b_sum}
+
+
+def group_norm_backward_reference(dy, x, scale, bias, num_groups: int,
+                                  eps: float = DEFAULT_EPS,
+                                  relu: bool = False):
+    """The gradients ``(dx, dscale, dbias)`` of :func:`group_norm_
+    reference` at ``dy``, in closed form in plain PyTorch (no autograd):
+    ``dx = r·(gy·s − c1 − x̂·c2)`` rounded once to ``x``'s dtype, with
+    ``c1``, ``c2`` the group means of ``s·gy`` and ``s·gy·x̂``; ``dscale``
+    ``= Σ gy·x̂`` and ``dbias = Σ gy`` over samples and rows, float32."""
+    t = _backward_terms(dy, x, scale, bias, num_groups, eps, relu)
+    dx = t["r"] * (t["gy"] * t["s"] - t["c1"] - t["xhat"] * t["c2"])
+    c = x.shape[3]
+    return (dx.reshape(x.shape).to(x.dtype), t["B"].sum(0).reshape(c),
+            t["A"].sum(0).reshape(c))
+
+
+def backward_error_bound(dy, x, scale, bias, num_groups: int, rel: float,
+                         eps: float = DEFAULT_EPS, relu: bool = False,
+                         exact=None):
+    """How far a float32 evaluation of the closed form may lie from
+    :func:`group_norm_backward_reference` when its sums run in another
+    order and its statistics differ by ``rel`` of a term's magnitude:
+    ``(dx, dscale, dbias)`` bounds, before any rounding of ``dx`` to a
+    narrower type.
+
+    * ``dx``: ``rel · r·(|gy·s| + |c1|' + (|x̂| + 1)·|c2|')``: each term
+      of ``r·(gy·s − c1 − x̂·c2)`` by its own size, where ``|c1|'`` and
+      ``|c2|'`` are the group means of ``|s·gy|`` and ``|s·gy·x̂|`` (a sum
+      taken in another order moves by a share of its terms' sizes, not of
+      its own) and ``x̂`` itself may be off by ``rel·(|x̂| + 1)`` (its
+      ``r`` relatively, its mean by ``rel`` of the spread);
+    * ``dscale``: ``rel · Σ|gy|·(|x̂| + 1)``; ``dbias``: ``rel · Σ|gy|``;
+    * with the ReLU, an element whose ``y`` lies within ``rel·(|s|·(|x̂|
+      + 1) + |b|)`` of 0 may take either side of the ReLU (the two sides
+      compute ``y`` with other roundings): its own ``dx`` may then move by
+      ``r·|dy·s|``, its group's ``c1``, ``c2`` by ``|s·dy|/M`` and
+      ``|s·dy·x̂|/M``, its channel's ``dbias`` by ``|dy|`` and ``dscale``
+      by ``|dy·x̂|``. ``exact`` (a bool ``[N, H, W, C]`` mask) marks
+      elements whose ``y`` both sides compute exactly (a group of zeros
+      with bias 0: ``y`` is 0 on both sides, the ReLU's tie), which get
+      no such allowance."""
+    n, h, w, c = x.shape
+    t = _backward_terms(dy, x, scale, bias, num_groups, eps, relu)
+    r, xhat, gy, s = t["r"], t["xhat"], t["gy"], t["s"]
+    agy, ax1 = gy.abs(), xhat.abs() + 1
+    m = float(h * w * (c // num_groups))
+    sgy = (gy * s).abs()
+    c1 = sgy.sum(dim=(1, 3), keepdim=True) / m
+    c2 = (sgy * xhat.abs()).sum(dim=(1, 3), keepdim=True) / m
+    dx = rel * r * (sgy + c1 + ax1 * c2)
+    dscale = rel * (agy * ax1).sum(dim=(0, 1))
+    dbias = rel * agy.sum(dim=(0, 1))
+    if relu:
+        near = t["y"].abs() <= rel * (s.abs() * ax1 + t["b"].abs())
+        if exact is not None:
+            near = near & ~exact.reshape(near.shape)
+        ady = dy.float().reshape(gy.shape).abs() * near
+        dc1 = (s.abs() * ady).sum(dim=(1, 3), keepdim=True) / m
+        dc2 = (s.abs() * ady * xhat.abs()).sum(dim=(1, 3), keepdim=True) / m
+        dx = dx + r * (ady * s.abs() + dc1 + xhat.abs() * dc2)
+        dscale = dscale + (ady * xhat.abs()).sum(dim=(0, 1))
+        dbias = dbias + ady.sum(dim=(0, 1))
+    return dx.reshape(x.shape), dscale.reshape(c), dbias.reshape(c)
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
@@ -147,6 +269,18 @@ def plan(n: int, hw: int, c: int) -> dict:
                               hw // _APPLY_ROWS))
     return {"ntiles": ntiles, "tile_rows": tile_rows, "ct": ct, "rt": rt,
             "apply_blocks": apply_blocks}
+
+
+def backward_plan(n: int, hw: int, resident: int = _BWD_RESIDENT) -> dict:
+    """How the backward's passes cut one call: ``ntiles`` tiles a sample
+    of ``tile_rows`` rows, as many as one wave of the ``resident`` CTAs
+    the card holds at once gives each sample (the wrapper asks the card),
+    at least _BWD_MIN_ROWS rows a tile where a sample has them. One full
+    wave beat both fewer, longer tiles and more, shorter ones at every
+    ResNet-50 site on an H100."""
+    ntiles = max(1, min(resident // n, hw // _BWD_MIN_ROWS))
+    tile_rows = -(-hw // ntiles)
+    return {"ntiles": -(-hw // tile_rows), "tile_rows": tile_rows}
 
 
 def vector_bytes(c: int, elt: int, align: int = _WIDEST_WORD) -> int:
@@ -237,8 +371,9 @@ def cluster_plan(n: int, hw: int, c: int, dtype: torch.dtype, groups: int,
 def _kernel_fn(name: str = "group_norm_fwd"):
     """A C entry point of ``ops/csrc/group_norm.cu`` (``group_norm_fwd``,
     the tiled body; ``group_norm_fwd_cluster``; ``group_norm_cluster_
-    occupancy``), built on first use, with every argument typed (pointers
-    and the stream as ``c_void_p``)."""
+    occupancy``; ``group_norm_bwd``; ``group_norm_bwd_resident``), built
+    on first use, with every argument typed (pointers and the stream as
+    ``c_void_p``)."""
     from mmlspark_tpu_torch.ops import _build
     fn = getattr(_build.load("group_norm"), name)
     if fn.argtypes is None:
@@ -248,6 +383,10 @@ def _kernel_fn(name: str = "group_norm_fwd"):
             "group_norm_fwd_cluster": [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p],
             "group_norm_cluster_occupancy": [ctypes.c_int] * 5
+            + [ctypes.POINTER(ctypes.c_int)],
+            "group_norm_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p],
+            "group_norm_bwd_resident": [ctypes.c_int] * 3
             + [ctypes.POINTER(ctypes.c_int)],
         }[name]
         fn.restype = ctypes.c_int
@@ -298,6 +437,20 @@ def _device_plan(n, hw, c, dtype, groups, align, device) -> dict | None:
     for each shape on each card."""
     return cluster_plan(n, hw, c, dtype, groups, align,
                         resident=lambda p: cluster_occupancy(dtype, p))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_backward_plan(n, hw, c, dtype, vec_bytes, device) -> dict:
+    """:func:`backward_plan` with the CTAs the current card holds at once
+    (its occupancy query), once for each shape on each card."""
+    out = ctypes.c_int(0)
+    err = _kernel_fn("group_norm_bwd_resident")(
+        _DTYPES[dtype], vec_bytes, c, ctypes.byref(out))
+    if err != 0 or out.value < 1:
+        raise RuntimeError(
+            f"group_norm backward occupancy query failed: cudaError {err}, "
+            f"{out.value} CTAs (C {c}, {dtype}, {vec_bytes}-byte words)")
+    return backward_plan(n, hw, out.value)
 
 
 def _pointer_align(*tensors: torch.Tensor) -> int:
@@ -356,11 +509,61 @@ def _group_norm_cuda(x, scale, bias, num_groups: int, eps: float,
     return out
 
 
+def _group_norm_bwd_cuda(dy, x, scale, bias, num_groups: int, eps: float,
+                         relu: bool):
+    """Launch the backward kernel on the current stream; returns ``(dx,
+    dscale, dbias)``, ``dx`` in ``x``'s dtype, the others float32. ``dy``
+    is copied to NHWC-contiguous first where it is not (counted in
+    ``backward_dy_copies``). The outputs and the float32 scratch are
+    allocated here; the kernel allocates nothing."""
+    global backward_launches, backward_dy_copies
+    if not x.is_cuda:
+        raise ValueError("the group_norm backward kernel needs CUDA tensors; "
+                         f"got x on {x.device}")
+    _check_cuda_operands(x, scale, bias)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(
+            f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does not match "
+            f"x {tuple(x.shape)} {x.dtype} on {x.device}")
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
+        with _count_lock:
+            backward_dy_copies += 1
+    n, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    vb = vector_bytes(c, x.element_size(), _pointer_align(x, dy, dx))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
+    stats = torch.empty((n, num_groups, 2), **f32)
+    coef = torch.empty((n, num_groups, 2), **f32)
+    with torch.cuda.device(x.device):
+        bp = _device_backward_plan(n, h * w, c, x.dtype, vb, x.device.index)
+        part = torch.empty((n, bp["ntiles"], num_groups, 2), **f32)
+        bpart = torch.empty((n, bp["ntiles"], c, 2), **f32)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn = _kernel_fn("group_norm_bwd")
+        with _count_lock:
+            backward_launches += 1
+        err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                 dbias.data_ptr(), part.data_ptr(), stats.data_ptr(),
+                 bpart.data_ptr(), coef.data_ptr(), _DTYPES[x.dtype], vb, n,
+                 h * w, c, num_groups, bp["tile_rows"], bp["ntiles"],
+                 int(relu), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"group_norm backward kernel launch failed: cudaError {err} "
+            f"(x {tuple(x.shape)} {x.dtype}, groups {num_groups}, "
+            f"{vb}-byte words, tiles {bp})")
+    return dx, dscale, dbias
+
+
 def group_norm_backward(grad_out, x, scale, bias, num_groups: int,
                         eps: float = DEFAULT_EPS, relu: bool = False):
-    """The gradients of ``x``, ``scale`` and ``bias``: the plain version
-    recomputed under autograd and differentiated, as the JAX package's
-    ``_gn_bwd`` does with ``jax.vjp``."""
+    """The gradients of ``x``, ``scale`` and ``bias`` by autograd: the
+    plain version recomputed and differentiated, as the JAX package's
+    ``_gn_bwd`` does with ``jax.vjp``. A measured reference only; the
+    kernel route's backward is :func:`_group_norm_bwd_cuda`."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in (x, scale, bias)]
         out = group_norm_reference(*inputs, num_groups, eps, relu)
@@ -368,7 +571,7 @@ def group_norm_backward(grad_out, x, scale, bias, num_groups: int,
 
 
 class _GroupNormKernel(torch.autograd.Function):
-    """Kernel forward; backward through the plain version's autograd."""
+    """The forward and backward kernels."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, relu):
@@ -378,7 +581,8 @@ class _GroupNormKernel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        grads = group_norm_backward(grad_out, *ctx.saved_tensors, *ctx.args)
+        grads = _group_norm_bwd_cuda(grad_out, *ctx.saved_tensors,
+                                     *ctx.args)
         return (*grads, None, None, None)
 
 

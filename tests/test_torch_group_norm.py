@@ -22,8 +22,26 @@ Tolerances:
   sides compute in float32 and round once to bfloat16, so a value whose
   f32 result sits at a rounding boundary may land one step apart.
 * gradients (float32): ``rtol=atol=1e-4``: the backward of the same
-  function through two autodiff systems, each summing over H·W in its
-  own order.
+  function through two autodiff systems, or through autodiff and the
+  closed form (``group_norm_backward_reference``), each summing over H·W
+  in its own order (measured at most 7.6e-6 on gradients of magnitude
+  up to 20). In bfloat16 ``dx`` is rounded once to bfloat16 on both
+  sides: ``BF16_TOL`` (one step), ``dscale``/``dbias`` stay float32.
+* gradients at mean 200, spread 0.02 (float32), ``OFFSET_GRAD_TOL``: the
+  two sides' group means differ by a few float32 steps at 200 (one step,
+  1.5e-5, is δ = 7.6e-4 of the spread), which shifts every x̂ of a group
+  by the same k·δ. ``dscale_c = Σ gy·x̂`` moves by k·δ·Σ_hw gy per
+  sample (|Σ_hw gy| up to about 3·√64 = 24 here): 1.8e-2 a step and a
+  sample; ``dx = r·(gy·s − c1 − x̂·c2)`` moves by r·k·δ·(|c2| + |x̂|·|c1|)
+  with r = 50 and |c1|, |c2| up to about 0.1 here: 1.1e-2 a step.
+  Measured 3.5e-2 (dscale) and 2.5e-2 (dx, of magnitude up to 343), so
+  ``atol=0.1`` (five to nine steps), with ``rtol=1e-4`` as above;
+  ``dbias`` has no x̂ and keeps ``GRAD_TOL``.
+* the ReLU's tie: at ``y == 0`` both packages pass half the gradient
+  (``jnp.maximum``, ``torch.maximum``); a group of zeros with bias 0 puts
+  every element of the group there, with r = rsqrt(eps) = 1000, so its
+  ``dx`` is of order 1000 and ``GRAD_TOL``'s rtol carries it (one that
+  passed the whole gradient would be 500·|dy·s| off).
 * the cluster body's arithmetic, emulated in float32 in the kernel's
   order of sums (``_cluster_emulation``): ``F32_TOL`` against the JAX
   reference at unit spread; at mean 200 and spread 0.02, 5e-3 against
@@ -61,6 +79,7 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 OFFSET_TOL = dict(rtol=0, atol=1e-2)
 BF16_TOL = dict(rtol=8e-3, atol=8e-3)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+OFFSET_GRAD_TOL = dict(rtol=1e-4, atol=0.1)
 
 # name -> (shape NHWC, groups, center, spread)
 CASES = {
@@ -155,11 +174,13 @@ def test_gradients_match_jax_vjp(relu):
 
 def test_kernel_autograd_function_differentiates_the_plain_version(
         monkeypatch):
-    """The kernel route's ``autograd.Function``: its backward recomputes
-    the plain version and differentiates it. The forward is replaced by
-    the plain version here (the kernel runs only on a card), so its
-    gradients must equal plain autograd's exactly."""
+    """The kernel route's ``autograd.Function``: its forward and backward
+    launches are replaced by their plain versions here (the kernels run
+    only on a card), so its gradients are the closed form's and must
+    match plain autograd of the plain forward."""
     monkeypatch.setattr(tgn, "_group_norm_cuda", tgn.group_norm_reference)
+    monkeypatch.setattr(tgn, "_group_norm_bwd_cuda",
+                        tgn.group_norm_backward_reference)
     x, scale, bias, groups = _inputs("unit", seed=5)
     g = torch.from_numpy(
         np.random.default_rng(6).normal(size=x.shape).astype(np.float32))
@@ -173,7 +194,228 @@ def test_kernel_autograd_function_differentiates_the_plain_version(
             out = tgn.group_norm_reference(*inputs, groups, 1e-6, True)
         grads.append(torch.autograd.grad(out, inputs, g))
     for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+
+
+def _zero_group(x, bias, groups, group=1):
+    """Zeros in one group of every sample and 0 bias on its channels: the
+    group normalises to exactly 0, the ReLU's tie."""
+    cg = x.shape[-1] // groups
+    x, bias = x.copy(), bias.copy()
+    x[..., group * cg:(group + 1) * cg] = 0.0
+    bias[group * cg:(group + 1) * cg] = 0.0
+    return x, bias
+
+
+def _jax_vjp(fn, x, scale, bias, g, groups, relu, dtype):
+    """``jax.vjp`` of ``fn`` at ``g``: (dx, dscale, dbias) as float32
+    numpy arrays (dx rounded to the input dtype first)."""
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    _, vjp = jax.vjp(lambda a, s, b: fn(a, s, b, groups, relu=relu),
+                     jnp.asarray(x, jdt), jnp.asarray(scale),
+                     jnp.asarray(bias))
+    return [np.asarray(t, np.float32) for t in vjp(jnp.asarray(g, jdt))]
+
+
+def _closed_form(x, scale, bias, g, groups, relu, dtype):
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    got = tgn.group_norm_backward_reference(
+        torch.from_numpy(g).to(tdt), torch.from_numpy(x).to(tdt),
+        torch.from_numpy(scale), torch.from_numpy(bias), groups, relu=relu)
+    assert got[0].dtype == tdt
+    assert got[1].dtype == got[2].dtype == torch.float32
+    return [t.float().numpy() for t in got]
+
+
+def _bf16_round(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+
+
+@pytest.mark.parametrize("route", ["autograd", "closed_form"])
+def test_relu_tie_passes_half_the_gradient_as_jax(route):
+    """A group of zeros with bias 0 sits on the ReLU's tie: the JAX
+    package's ``jnp.maximum`` passes half the gradient there, and so must
+    the port's plain forward under autograd and its closed form."""
+    x, scale, bias, groups = _inputs("unit", seed=8)
+    x, bias = _zero_group(x, bias, groups)
+    g = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+    want = _jax_vjp(jax_group_norm, x, scale, bias, g, groups, True, "f32")
+    if route == "autograd":
+        inputs = [torch.from_numpy(a).requires_grad_()
+                  for a in (x, scale, bias)]
+        out = tgn.group_norm(*inputs, groups, relu=True)
+        got = [t.numpy() for t in
+               torch.autograd.grad(out, inputs, torch.from_numpy(g))]
+    else:
+        got = _closed_form(x, scale, bias, g, groups, True, "f32")
+    cg = x.shape[-1] // groups
+    assert np.abs(want[0][..., cg:2 * cg]).max() > 100  # r = 1000 there
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("jax_fn", ["reference", "pallas"])
+def test_backward_closed_form_matches_jax_vjp(jax_fn, case, relu, dtype):
+    """The closed form against ``jax.vjp`` of the JAX package's function
+    (its ``group_norm`` differentiates the reference: ``_gn_bwd``)."""
+    x, scale, bias, groups = _inputs(case, seed=10)
+    g = np.random.default_rng(11).normal(size=x.shape).astype(np.float32)
+    if dtype == "bf16":
+        x, g = _bf16_round(x), _bf16_round(g)
+    fn = jax_group_norm_reference if jax_fn == "reference" \
+        else jax_group_norm
+    want = _jax_vjp(fn, x, scale, bias, g, groups, relu, dtype)
+    got = _closed_form(x, scale, bias, g, groups, relu, dtype)
+    offset = CASES[case][2] > 100 and dtype == "f32"
+    tols = [BF16_TOL if dtype == "bf16" else
+            OFFSET_GRAD_TOL if offset else GRAD_TOL,
+            OFFSET_GRAD_TOL if offset else GRAD_TOL, GRAD_TOL]
+    for a, b, tol, name in zip(got, want, tols, ("dx", "dscale", "dbias")):
+        np.testing.assert_allclose(a, b, err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("c,groups", [(32, 32), (64, 32), (64, 8), (128, 2)])
+def test_backward_closed_form_over_group_widths(c, groups):
+    """cg ∈ {1, 2, 8, 64} on a ragged 13×11 sample, with the ReLU."""
+    r = np.random.default_rng(12)
+    x = r.normal(size=(2, 13, 11, c)).astype(np.float32)
+    scale = r.normal(size=c).astype(np.float32)
+    bias = r.normal(size=c).astype(np.float32)
+    g = r.normal(size=x.shape).astype(np.float32)
+    want = _jax_vjp(jax_group_norm_reference, x, scale, bias, g, groups,
+                    True, "f32")
+    got = _closed_form(x, scale, bias, g, groups, True, "f32")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", ["unit", "mean_200_spread_0.02"])
+def test_autograd_route_lies_within_the_closed_forms_error_bound(case):
+    """``backward_error_bound`` (what ``chip_smoke.py`` holds the kernel
+    to) at the tolerance the card's check takes for the case, 1e-5 or
+    5e-3 of each term, holds the autograd route, which reaches the same
+    gradients through another float32 algebra (measured at most 5.2e-8 of
+    each term at unit spread, 2.0e-5 at mean 200)."""
+    x, scale, bias, groups = _inputs(case, seed=13)
+    g = np.random.default_rng(14).normal(size=x.shape).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (g, x, scale, bias)]
+    want = tgn.group_norm_backward_reference(*args, groups, relu=True)
+    got = tgn.group_norm_backward(*args, groups, relu=True)
+    rel = 5e-3 if CASES[case][2] > 100 else 1e-5
+    bounds = tgn.backward_error_bound(*args, groups, rel, relu=True)
+    for a, b, bound in zip(got, want, bounds):
+        assert bool(((a - b).abs() <= bound).all())
+
+
+def test_tie_elements_marked_exact_get_no_relu_allowance():
+    """A group of zeros sits on the ReLU's tie on both sides; marked
+    ``exact``, its elements lose the allowance for taking the other side
+    of the ReLU, so a backward that passed the whole gradient there
+    would fall outside the bound."""
+    x, scale, bias, groups = _inputs("unit", seed=15)
+    x, bias = _zero_group(x, bias, groups)
+    g = np.random.default_rng(16).normal(size=x.shape).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (g, x, scale, bias)]
+    want = tgn.group_norm_backward_reference(*args, groups, relu=True)
+    # the whole gradient at the tie: dx as if the ReLU's derivative were 1
+    cg = x.shape[-1] // groups
+    wrong = want[0].clone()
+    dy, s = args[0][..., cg:2 * cg], args[2][cg:2 * cg]
+    wrong[..., cg:2 * cg] += 0.5 * 1000.0 * dy * s
+    exact = torch.zeros(x.shape, dtype=torch.bool)
+    exact[..., cg:2 * cg] = True
+    loose = tgn.backward_error_bound(*args, groups, 1e-5, relu=True)[0]
+    strict = tgn.backward_error_bound(*args, groups, 1e-5, relu=True,
+                                      exact=exact)[0]
+    assert bool(((wrong - want[0]).abs() <= loose).all())
+    assert not bool(((wrong - want[0]).abs() <= strict).all())
+
+
+def test_backward_wrapper_takes_cuda_tensors_only():
+    x = torch.zeros(1, 2, 2, 4)
+    before = tgn.backward_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tgn._group_norm_bwd_cuda(x, x, torch.ones(4), torch.zeros(4), 2,
+                                 1e-6, True)
+    assert tgn.backward_launches == before
+
+
+@pytest.mark.parametrize("n,hw", [(64, 112 * 112), (64, 49), (64, 196),
+                                  (1, 7), (3, 143), (2, 1)])
+def test_backward_plan_covers_every_row(n, hw):
+    p = tgn.backward_plan(n, hw)
+    assert p["tile_rows"] * (p["ntiles"] - 1) < hw <= \
+        p["tile_rows"] * p["ntiles"]
+    assert p["tile_rows"] >= min(hw, tgn._BWD_MIN_ROWS)
+    assert n * p["ntiles"] <= max(n, tgn._BWD_RESIDENT)
+
+
+def test_resnet_step_through_the_kernel_route_matches_the_jax_trainer(
+        monkeypatch):
+    """One momentum-SGD step of ``resnet18_thin`` through the kernel
+    route's ``autograd.Function`` at every GroupNorm site, both launches
+    swapped for their plain versions, against the JAX trainer's masked
+    step on the same converted weights and batch (its GroupNorm the
+    Pallas kernel, whose backward is ``_gn_bwd``). float32 on both sides;
+    ``rtol=atol=1e-5`` on the loss and the parameters after the step, as
+    ``tests/test_torch_train.py`` holds the trainers."""
+    from mmlspark_tpu.models import resnet as jres
+    from mmlspark_tpu.train import loop as jloop
+    from mmlspark_tpu_torch.models import resnet as tres
+    from mmlspark_tpu_torch.models.convert import resnet_state_dict_from_flax
+    from mmlspark_tpu_torch.train import loop as tloop
+
+    r = np.random.default_rng(17)
+    x = r.normal(size=(4, 32, 32, 3)).astype(np.float32)
+    y = r.integers(0, 10, 4).astype(np.int64)
+    w = np.array([1, 1, 1, 0], np.float32)
+    run = dict(batch_size=4, optimizer="momentum", learning_rate=0.1)
+    jt = jloop.Trainer(
+        jres.resnet18_thin(num_classes=10, dtype=jnp.float32,
+                           gn_impl="pallas"),
+        jloop.TrainConfig(mesh_spec={"dp": 1}, **run))
+    state = jt.init_state(x.shape[1:])
+
+    def to_port(params):
+        return resnet_state_dict_from_flax(
+            jax.tree_util.tree_map(np.asarray, params))
+
+    init = to_port(state["params"])
+    state, metrics = jt.step_masked(state, jnp.asarray(x), jnp.asarray(y),
+                                    jnp.asarray(w))
+    want = to_port(state["params"])
+
+    calls = {"forward": 0, "backward": 0}
+
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(tgn, "resolve_impl", lambda impl, x: "cuda")
+    monkeypatch.setattr(tgn, "_group_norm_cuda",
+                        counted("forward", tgn.group_norm_reference))
+    monkeypatch.setattr(tgn, "_group_norm_bwd_cuda",
+                        counted("backward",
+                                tgn.group_norm_backward_reference))
+    model = tres.resnet18_thin(num_classes=10, dtype=torch.float32,
+                               device="cpu")
+    trainer = tloop.Trainer(model, tloop.TrainConfig(device="cpu", **run),
+                            initial_state_dict=init)
+    loss = trainer.train_step(*(torch.from_numpy(a) for a in (x, y, w)))
+    sites = tres.gn_sites(model)
+    assert calls == {"forward": sites, "backward": sites}
+    np.testing.assert_allclose(float(loss), float(metrics["loss"]),
+                               rtol=1e-5, atol=1e-5)
+    got = trainer.state_dict()
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), err_msg=k,
+                                   rtol=1e-5, atol=1e-5)
+    assert max(float((want[k] - init[k]).abs().max()) for k in init) > 1e-3
 
 
 @pytest.mark.parametrize("c,groups", [(12, 5), (16, 0), (8, 16)])
@@ -489,3 +731,168 @@ def test_cuda_kernel_matches_plain_version():
         tol = 1e-4 if dtype == torch.float32 else 2 ** -7
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol if spread >= 1 else 5e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_kernel_matches_closed_form():
+    """The backward kernel against its plain version (the closed form) on
+    the card, at ResNet-50 shapes and the edge cases, each launched twice
+    on the same input (equal bit for bit), with ``dy`` contiguous and as
+    a strided view (copied once by the wrapper). Tolerance:
+    ``backward_error_bound`` at 1e-5 of each term (5e-3 at mean 200: a few
+    float32 steps of the mean over its spread), the tie's zero group marked
+    exact, plus one bfloat16 step (2^-7 of the value) where dx is
+    bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # shape, groups, dtype, center, spread, storage offset, zero group
+    for shape, groups, dtype, center, spread, offset, zero in [
+            ((8, 56, 56, 64), 32, torch.bfloat16, 0.0, 1.0, 0, False),
+            ((8, 7, 7, 2048), 32, torch.float32, 0.0, 1.0, 0, False),
+            ((2, 8, 8, 32), 8, torch.float32, 200.0, 0.02, 0, False),
+            ((4, 13, 11, 96), 32, torch.bfloat16, 0.0, 1.0, 0, False),
+            ((2, 14, 14, 256), 32, torch.bfloat16, 0.0, 1.0, 1, False),
+            ((2, 13, 11, 64), 32, torch.float32, 0.0, 1.0, 1, False),
+            ((4, 28, 28, 128), 32, torch.bfloat16, 0.0, 1.0, 0, True),
+            ((2, 112, 112, 128), 32, torch.float32, 0.0, 1.0, 0, False)]:
+        numel = int(np.prod(shape))
+        flat = (center + spread * torch.randn(numel + offset, generator=gen,
+                                              device=dev)).to(dtype)
+        x = flat[offset:].view(shape)
+        scale = torch.randn(shape[-1], generator=gen, device=dev)
+        bias = torch.randn(shape[-1], generator=gen, device=dev)
+        exact = None
+        if zero:
+            cg = shape[-1] // groups
+            x[..., cg:2 * cg] = 0
+            bias[cg:2 * cg] = 0
+            exact = torch.zeros(shape, dtype=torch.bool, device=dev)
+            exact[..., cg:2 * cg] = True
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        # dy as autograd may hand it over: an NCHW-contiguous tensor seen
+        # as NHWC
+        strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        before = (tgn.backward_launches, tgn.backward_dy_copies)
+        got = tgn._group_norm_bwd_cuda(dy, x, scale, bias, groups, 1e-6,
+                                       True)
+        again = tgn._group_norm_bwd_cuda(strided, x, scale, bias, groups,
+                                         1e-6, True)
+        torch.cuda.synchronize()
+        assert (tgn.backward_launches, tgn.backward_dy_copies) == \
+            (before[0] + 2, before[1] + 1), (shape, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            (shape, dtype)
+        want = tgn.group_norm_backward_reference(dy, x, scale, bias, groups,
+                                                 relu=True)
+        rel = 5e-3 if spread < 1 else 1e-5
+        bounds = tgn.backward_error_bound(dy, x, scale, bias, groups, rel,
+                                          relu=True, exact=exact)
+        assert got[0].dtype == dtype and got[1].dtype == torch.float32
+        for i, (a, b, bound) in enumerate(zip(got, want, bounds)):
+            if i == 0 and dtype == torch.bfloat16:
+                bound = bound + 2 ** -7 * b.float().abs()
+            assert bool(((a.float() - b.float()).abs() <= bound).all()), \
+                (shape, dtype, i)
+
+
+def _warp_sum(v):
+    """A warp's sum of ``v`` (one value a channel): lane l adds channels
+    l, l + 32, … in order, then a shuffle tree (offsets 16, 8, 4, 2, 1)
+    into lane 0, each addition rounded to float32."""
+    lanes = [torch.zeros((), dtype=torch.float32) for _ in range(32)]
+    for j in range(v.shape[0]):
+        lanes[j % 32] = lanes[j % 32] + v[j]
+    off = 16
+    while off:
+        lanes = [lanes[i] + lanes[i + off] if i + off < 32 else lanes[i]
+                 for i in range(32)]
+        off //= 2
+    return lanes[0]
+
+
+def _bwd_statistics_emulation(x, groups, eps):
+    """The backward's statistics in float32, in the kernels' order: per
+    tile of :func:`backward_plan` and channel, sums of x − K_c over the
+    tile's rows with K_c the tile's first value of the channel; per group,
+    the channels by a warp (``gn_bwd_stats``); then the tiles merged with
+    Chan's formula as ``gn_merge`` merges them (lane t holds tile t, then
+    a shuffle tree). Returns (mean, rstd) ``[N, G]``."""
+    n, h, w, c = x.shape
+    hw, cg = h * w, c // groups
+    p = tgn.backward_plan(n, hw)
+    xs = x.float().reshape(n, hw, c)
+    f = torch.float32
+
+    def chan(a, b):  # (count, mean, M2) of a absorbing b, in float32
+        (na, ma, qa), (nb, mb, qb) = a, b
+        if nb == 0:
+            return a
+        if na == 0:
+            return b
+        nab = na + nb
+        d = mb - ma
+        return (nab, ma + d * (nb / nab), qa + qb + d * d * (na * nb / nab))
+
+    mean = torch.empty(n, groups)
+    rstd = torch.empty(n, groups)
+    for i in range(n):
+        lanes = [[] for _ in range(groups)]
+        for t in range(p["ntiles"]):
+            tile = xs[i, t * p["tile_rows"]:(t + 1) * p["tile_rows"]]
+            rows = torch.tensor(float(tile.shape[0]), dtype=f)
+            k = tile[0]
+            s1 = _seq_sum(tile - k, 0)
+            s2 = _seq_sum((tile - k) ** 2, 0)
+            for g in range(groups):
+                sl = slice(g * cg, (g + 1) * cg)
+                d = (k[sl] - k[g * cg]) + s1[sl] / rows
+                dbar = _warp_sum(d) / torch.tensor(float(cg), dtype=f)
+                e = d - dbar
+                m2 = _warp_sum((s2[sl] - s1[sl] * (s1[sl] / rows))
+                               + rows * e * e)
+                lanes[g].append((rows * cg, k[g * cg] + dbar, m2))
+        for g in range(groups):
+            lane = [(0, 0.0, 0.0)] * 32
+            for t, moments in enumerate(lanes[g]):
+                lane[t % 32] = chan(lane[t % 32], moments)
+            off = 16
+            while off:
+                lane = [chan(lane[j], lane[j + off]) if j + off < 32
+                        else lane[j] for j in range(32)]
+                off //= 2
+            cnt, m, q = lane[0]
+            mean[i, g] = m
+            rstd[i, g] = 1.0 / torch.sqrt(
+                torch.clamp_min(q / cnt, 0.0) + torch.tensor(eps, dtype=f))
+    return mean, rstd
+
+
+@pytest.mark.parametrize("center", [0.0, 200.0])
+@pytest.mark.parametrize("shape,groups", [((2, 13, 11, 64), 8),
+                                          ((1, 40, 40, 32), 32)])
+def test_backward_statistics_scheme_against_a_float64_oracle(shape, groups,
+                                                             center):
+    """The backward kernel's statistics (shifted sums per tile, Chan's
+    merge of the tiles) in float32 against a float64 oracle: at unit
+    spread within 1e-6 (mean) and 1e-5 (rstd, relative); at mean 200 and
+    spread 0.02 the mean within two float32 steps of 200 (each 1.53e-5,
+    7.6e-4 of the spread: the nearest float32 to the true mean is up to
+    half a step off, and the last add to K_0 and each Chan merge round
+    once; measured 1.6e-5), and rstd within 1e-3 relative (measured
+    4.0e-5): the shifted sums leave no cancellation against the mean."""
+    spread = 0.02 if center else 1.0
+    x = np.random.default_rng(18).normal(center, spread,
+                                         shape).astype(np.float32)
+    assert tgn.backward_plan(shape[0], shape[1] * shape[2])["ntiles"] > 1
+    mean, rstd = _bwd_statistics_emulation(torch.from_numpy(x), groups,
+                                           1e-6)
+    xf = x.astype(np.float64).reshape(shape[0], -1, groups,
+                                      shape[-1] // groups)
+    want_mean = xf.mean(axis=(1, 3))
+    want_rstd = 1 / np.sqrt(xf.var(axis=(1, 3)) + 1e-6)
+    mean_tol = 2 * 2.0 ** -16 if center else 1e-6
+    rstd_tol = 1e-3 if center else 1e-5
+    assert np.abs(mean.numpy() - want_mean).max() < mean_tol
+    assert (np.abs(rstd.numpy() - want_rstd) / want_rstd).max() < rstd_tol

@@ -91,17 +91,28 @@ Phases, each printing JSON lines:
    37 × 200), with its time, the plain version's, the bound over the
    (query, key) pairs the mask keeps, over the 64 × 64 tiles the kernel
    works through and over every key, and SDPA's time over the same block
-   without the carry (for reference);
+   without the carry (for reference); then K3's backward kernel against
+   its closed form at every hop, with the ring's own cotangents (a loss on
+   its output) and with seeded random ones, at the same edge cases and at
+   two integer cases whose scores are exact on both sides (duplicated
+   keys; the carried m equal to the row max), each launched twice and
+   equal bit for bit, each gradient within
+   ``block_update_backward_error_bound``, with its time per hop, the
+   closed form's, the autograd route's, SDPA's backward over the same
+   block without the carry (for reference) and the bound;
 10. **sp_train** — the causal TransformerTagger at GPT-2 small's widths
     (weights from a seed, pad token 0) trained through
     ``Trainer.fit_arrays`` with ``mesh_spec={"sp": 4}`` for 5 steps of 8
     next-token sequences of 512–1024 tokens: every loss finite, the
-    block-update kernel launched 48 times a step (12 layers × 4 hops; the
-    backward launches none); on the first batch the ring's logits held
-    against the unsharded forward, and the loss and gradients through the
-    kernel against the plain block update; real tokens/s, step time, peak
+    block-update kernel launched 48 times a step (12 layers × 4 hops) and
+    its backward kernel called 48 times a step (and the cotangents it
+    copied); on the first batch the ring's logits held against the
+    unsharded forward, and the loss and gradients through the kernels
+    against the plain block update; real tokens/s, step time, peak
     memory, and one step under ``torch.profiler`` (device busy and idle,
-    the kernel's forward and the plain backward's share);
+    K3's forward and backward kernels' share; the traced step must hold
+    48 backward calls with each of its two kernels 48 times and no call
+    of a plain block-update route);
 11. **kernels** — one line listing every ported kernel.
 
 Phases run in the order attention, serve, decode_attention, generate,
@@ -271,6 +282,28 @@ GEN_LOGIT_TOL = 1e-4
 # products in another order: m and acc/denom differ by float32 rounding,
 # some 10 steps of values of order 1; 1e-5 is about 100 such steps
 BLOCK_TOL = 1e-5
+# K3's backward kernel vs its plain version (the closed form), float32 from
+# the same operands: the kernel sums the products over D, the keys and the
+# query rows in its own order, takes the block max from its own scores and
+# uses expf. Each gradient is held to ops/attention.py
+# block_update_backward_error_bound at BLOCK_BWD_REL of the sizes of its
+# terms: a float32 sum of n terms taken in another order moves by at most
+# (n − 1)·2^-24 of the sum of its terms' sizes and in practice by about
+# √n·2^-24; the longest sums run over Tk = 256 keys or D ≤ 128 products,
+# √256·2^-24 = 8 float32 epsilons, and 64 epsilons is 8 times that (the
+# float32 closed form lies within 0.023 of the bound from its float64
+# evaluation at 256 × 256, D = 64, on the CPU). Where the two sides may see
+# a tie at the block max differently (a second key or the carried m within
+# rounding of it) the bound grants that row the max's whole term; the two
+# integer cases, whose scores are exact on both sides, are granted nothing,
+# so their ties (the even split over tied keys, the half at m == max) are
+# checked
+BLOCK_BWD_REL = 64 * 2.0 ** -23
+# float32 operations per kept (query, key) pair and head column of the
+# backward: five products (s, dp, dq, dk, dv), two operations each
+BLOCK_BWD_OPS_PER_PAIR = 10
+# the backward's two kernels in a profiler trace, one each a call
+BLOCK_BWD_KERNEL_NAMES = ("bu_bwd_dq", "bu_bwd_dkdv")
 # sequence-parallel training: the generation path's model (GPT-2 small's
 # widths, GEN_MODEL) with pad token 0, trained through Trainer.fit_arrays on
 # a mesh of SP_RANKS virtual ranks (ring attention, K3 at every hop of every
@@ -288,11 +321,13 @@ SP_LOGIT_TOL = 1e-4
 # itself, and the gradient: the norm of the difference over the norm of
 # the plain route's gradient, over all parameters and in the tensor where
 # it is largest (so that a fault confined to the attention weights cannot
-# hide behind the head's gradient). Both routes run the same backward (the
-# plain update recomputed), at forward values that differ by rounding; a
-# wrong mask or hop moves the gradient by order 1
-# (measured on an H100: loss gap 0, gradient gap 1.3e-6 over all
-# parameters, 1.8e-6 in the worst tensor)
+# hide behind the head's gradient). The kernel route's backward is K3's
+# backward kernel and the plain route's autograd of the plain update: they
+# differ by rounding (BLOCK_BWD_REL of each term), at forward values that
+# differ by rounding too; a wrong mask, hop or gradient term moves the
+# gradient by order 1 (measured on an H100 when both routes ran the plain
+# update recomputed under autograd: loss gap 0, gradient gap 1.3e-6 over
+# all parameters, 1.8e-6 in the worst tensor)
 SP_LOSS_TOL = 1e-4
 SP_GRAD_TOL = 1e-4
 
@@ -1748,6 +1783,31 @@ def block_update_bound(n, h, tq, tk, d, keep=None) -> tuple[float, str]:
                  4 * h * d * pairs, "float32")
 
 
+def block_update_backward_bound(n, h, tq, tk, d, keep=None
+                                ) -> tuple[float, str]:
+    """K3's backward on these operands: q, k, v, the carry (m, denom
+    [N,H,Tq,1] and acc [N,H,Tq,D]), the three cotangents of the carry and
+    the int8 mask read once; dq, dk, dv and the carry's three gradients
+    written once; BLOCK_BWD_OPS_PER_PAIR·N·H·Tq·Tk·D float32 operations.
+    With ``keep`` (this run's ``[N, Tq, Tk]`` mask) only the work the
+    function needs: the kept (query, key) pairs' operations, the q rows
+    that keep some key and the K/V rows of the keys that some query keeps
+    (every output is written all the same)."""
+    carry = n * h * tq * (d + 2)
+    outputs = n * h * (tq + 2 * tk) * d
+    fixed = n * tq * tk + 4 * (3 * carry + outputs)
+    if keep is None:
+        return bound(fixed + 4 * outputs,
+                     BLOCK_BWD_OPS_PER_PAIR * n * h * tq * tk * d,
+                     "float32")
+    kept = keep != 0
+    pairs = int(kept.sum())
+    q_rows = int(kept.any(dim=2).sum())
+    kv_rows = int(kept.any(dim=1).sum())
+    return bound(fixed + 4 * h * d * (q_rows + 2 * kv_rows),
+                 BLOCK_BWD_OPS_PER_PAIR * h * d * pairs, "float32")
+
+
 def kernel_tile_keep(keep):
     """``keep`` widened to whole (64-row tile, 64-key stripe) pairs: the
     work K3 does, since it skips only the pairs that keep no key. Its bound
@@ -1843,11 +1903,136 @@ def _block_case(args, scale, name) -> tuple[dict, tuple]:
     return row, got
 
 
+def _ring_cotangents(hops, scale) -> list[tuple]:
+    """The cotangents each hop's fresh carry gets in one ring: a loss on
+    the ring's output (acc / max(denom, 1e-30), weighted by seeded noise)
+    differentiated through the plain updates from the first hop's carry
+    over the hops' recorded q, k, v and masks. The last hop's m, which
+    nothing reads, gets zeros."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    carry = tuple(t.detach().requires_grad_() for t in hops[0][4:])
+    outs = []
+    with torch.enable_grad():
+        for q, k, v, keep, *_ in hops:
+            carry = fa.block_update_reference(q, k, v, keep, *carry, scale)
+            for t in carry:
+                t.retain_grad()
+            outs.append(carry)
+        out = carry[2] / torch.clamp(carry[1], min=1e-30)
+        w = torch.randn(out.shape, generator=gen, device=DEV)
+        (out * w).sum().backward()
+    return [tuple(torch.zeros_like(t) if t.grad is None
+                  else t.grad.detach() for t in c) for c in outs]
+
+
+def _random_cotangents(args, gen) -> tuple:
+    """Seeded normal cotangents of the carry ``args`` updates: the max's
+    term is then of order 1."""
+    import torch
+    n, h, tq, d = args[0].shape
+    return tuple(torch.randn(shape, generator=gen, device=DEV)
+                 for shape in ((n, h, tq, 1), (n, h, tq, 1), (n, h, tq, d)))
+
+
+def _block_bwd_case(args, grads, scale, name, exact=False) -> dict:
+    """K3's backward kernel against its plain version (the closed form) on
+    one input and one set of cotangents: launched twice, equal bit for bit
+    (NaN payloads included); finite at the same places (dm is NaN on dead
+    rows); each gradient within ``block_update_backward_error_bound`` at
+    BLOCK_BWD_REL, with no allowance for a tie seen differently where
+    ``exact``. Emits and returns the row."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    before = fa.block_update_backward_launches
+    got = fa._block_update_bwd_cuda(grads, *args, scale)
+    again = fa._block_update_bwd_cuda(grads, *args, scale)
+    torch.cuda.synchronize()
+    check(fa.block_update_backward_launches == before + 2,
+          f"backward launches {before} -> "
+          f"{fa.block_update_backward_launches}, expected +2")
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(got, again))
+    want = fa.block_update_backward_reference(grads, *args, scale)
+    bounds = fa.block_update_backward_error_bound(
+        grads, *args, scale, BLOCK_BWD_REL, exact=exact)
+    errs, ratios, same_finite = {}, {}, True
+    for key, g, w, bnd in zip(("dq", "dk", "dv", "dm", "ddenom", "dacc"),
+                              got, want, bounds):
+        check(g.shape == w.shape and g.dtype == torch.float32,
+              f"backward {key}: {tuple(g.shape)} {g.dtype}")
+        fin = torch.isfinite(w)
+        same_finite = same_finite and bool(torch.equal(torch.isfinite(g),
+                                                       fin))
+        diff = (g[fin].double() - w[fin].double()).abs()
+        errs[key] = float(diff.max()) if diff.numel() else 0.0
+        ratios[key] = float((diff / bnd[fin].clamp_min(1e-300)).max()) \
+            if diff.numel() else 0.0
+    n, h, tq, d = args[0].shape
+    row = {"phase": "kernel", "kernel": "attention_block_update_backward",
+           "case": name, "N": n, "H": h, "Tq": tq, "Tk": args[1].shape[2],
+           "D": d, "kept_fraction": float((args[3] != 0).float().mean()),
+           "dead_rows": int((~torch.isfinite(want[3])).sum()),
+           "exact_scores": exact, "bitwise_repeat": repeat,
+           "same_finite": same_finite, "max_abs_err": max(errs.values()),
+           "abs_err": errs, "err_over_bound": ratios,
+           "max_err_over_bound": max(ratios.values()), "rel": BLOCK_BWD_REL}
+    emit(row)
+    check(repeat, f"two backward launches on the same input differ: {name}")
+    check(same_finite, f"{name}: the backward kernel's non-finite entries "
+                       "differ from the plain version's")
+    check(row["max_err_over_bound"] <= 1,
+          f"attention_block_update backward kernel differs from its plain "
+          f"version past block_update_backward_error_bound on {row}")
+    return row
+
+
+def _integer_tie_inputs(kind, gen) -> tuple:
+    """Inputs whose scores are exact on both sides (q and k in {-1, 0,
+    1}): ``duplicated_keys`` (the second half of the keys repeats the
+    first: ties at the block max) or ``m_at_row_max`` (the carried m set
+    to each row's largest kept score: the max's half-and-half split)."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    n, h, tq, tk, d = 8, 12, 256, 256, 64
+    q, k = (torch.randint(-1, 2, (n, h, t, d), generator=gen,
+                          device=DEV).float() for t in (tq, tk))
+    v = torch.randn((n, h, tk, d), generator=gen, device=DEV)
+    keep = torch.rand((n, tq, tk), generator=gen, device=DEV) > 0.3
+    scale = fa.resolve_scale(None, d)
+    k0, v0 = (torch.randn((n, h, tk, d), generator=gen, device=DEV)
+              for _ in range(2))
+    keep0 = torch.rand((n, tq, tk), generator=gen, device=DEV) > 0.5
+    keep0[:, :3] = False
+    m, den, acc = fa.attention_block_update(
+        q, k0, v0, keep0, torch.full((n, h, tq, 1), float("-inf"),
+                                     device=DEV),
+        torch.zeros((n, h, tq, 1), device=DEV),
+        torch.zeros((n, h, tq, d), device=DEV), scale, impl="torch")
+    if kind == "duplicated_keys":
+        k[:, :, tk // 2:] = k[:, :, :tk // 2]
+    else:
+        s = torch.where(keep[:, None], torch.matmul(q, k.transpose(-1, -2))
+                        * scale, float("-inf"))
+        b = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(b), b, m)
+    return (q, k, v, keep.to(torch.int8), m, den, acc), scale
+
+
 def phase_block_update() -> dict:
     """K3 against its plain version at every hop of a ring over the
     training geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the
     first training batch's pad mask, causal), on a block with every key
-    kept, and at the edge cases; times and bounds per hop."""
+    kept, and at the edge cases; times and bounds per hop. The same for
+    K3's backward kernel against its closed form, at every hop with the
+    ring's own cotangents and with seeded random ones, and at the edge
+    cases and two integer tie cases; its time per hop beside the closed
+    form's, the autograd route's and SDPA's backward over the same block
+    without the carry."""
     import torch
     import torch.nn.functional as F
 
@@ -1902,6 +2087,10 @@ def phase_block_update() -> dict:
     worst = max(worst, row["max_abs_err"])
     dense = row
     emit(row)
+    gen_b = torch.Generator(device=DEV).manual_seed(4)
+    bwd_rows = [_block_bwd_case(
+        (q, k, v, ones, m, den, acc), _random_cotangents(hops[1], gen_b),
+        scale, "every key kept, random cotangents")]
 
     # edge cases: a pad-only block on the real carry (which must pass
     # through bit for bit) and on the initial carry (exact (-inf, 0, 0))
@@ -1912,6 +2101,9 @@ def phase_block_update() -> dict:
           "a pad-only block changed the carry")
     row["carry_unchanged_bit_for_bit"] = True
     emit(row)
+    bwd_rows.append(_block_bwd_case(
+        (q, k, v, zeros, m, den, acc), _random_cotangents(hops[1], gen_b),
+        scale, "pad-only block, carry of hop 1"))
     m0 = torch.full_like(m, float("-inf"))
     d0, a0 = torch.zeros_like(den), torch.zeros_like(acc)
     row, got = _block_case((q, k, v, zeros, m0, d0, a0), scale,
@@ -1921,6 +2113,9 @@ def phase_block_update() -> dict:
           "a pad-only block from the initial carry is not (-inf, 0, 0)")
     row["initial_carry_exact"] = True
     emit(row)
+    bwd_rows.append(_block_bwd_case(
+        (q, k, v, zeros, m0, d0, a0), _random_cotangents(hops[1], gen_b),
+        scale, "pad-only block, initial carry"))
     gen = torch.Generator(device=DEV).manual_seed(2)
 
     def inputs(n, h, tq, tk, d, keep_fn):
@@ -1957,6 +2152,15 @@ def phase_block_update() -> dict:
         row, _ = _block_case(args, fa.resolve_scale(None, shape[-1]), name)
         worst = max(worst, row["max_abs_err"])
         emit(row)
+        bwd_rows.append(_block_bwd_case(
+            args, _random_cotangents(args, gen_b),
+            fa.resolve_scale(None, shape[-1]), name))
+        del args
+    for kind in ("duplicated_keys", "m_at_row_max"):
+        args, sc = _integer_tie_inputs(kind, gen_b)
+        bwd_rows.append(_block_bwd_case(
+            args, _random_cotangents(args, gen_b), sc,
+            f"{kind}, integer scores", exact=True))
         del args
 
     total = {key: sum(r[key] for r in timed)
@@ -1977,10 +2181,85 @@ def phase_block_update() -> dict:
     # sets the larger share of the hops' summed bound
     by_share = {by: sum(r["bound_ms"] for r in timed if r["bound_by"] == by)
                 for by in ("bytes", "operations")}
+    bwd = _block_update_backward_hops(hops, scale, gen_b, bwd_rows)
     return {"ms": total["ms"] / hops_n, "plain_ms": total["plain_ms"] / hops_n,
             "bound_ms": total["bound_ms"] / hops_n,
             "bound_by": max(by_share, key=by_share.get),
-            "max_abs_err": worst}
+            "max_abs_err": worst, "backward": bwd}
+
+
+def _block_update_backward_hops(hops, scale, gen, rows) -> dict:
+    """K3's backward kernel at every hop of the ring with the ring's own
+    cotangents (a loss on its output) and with seeded random ones, and its
+    times per hop with the ring's (L2 warm): the kernel, the closed form,
+    the autograd route and, for reference, SDPA's backward over the same
+    block without the carry (the graph kept, the backward only; rows with
+    no kept key give NaN there), beside the bound. ``rows`` holds the
+    edge cases' rows. Returns the per-hop means of one ring (the kernels
+    line's figures) and the worst error and ratio."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    layers = SP_MODEL["num_layers"]
+    cots = _ring_cotangents(hops, scale)
+    timed = []
+    for step, (args, ring_g) in enumerate(zip(hops, cots)):
+        rows.append(_block_bwd_case(
+            args, _random_cotangents(args, gen), scale,
+            f"ring hop {step}, random cotangents"))
+        row = _block_bwd_case(args, ring_g, scale,
+                              f"ring hop {step}, the ring's cotangents")
+        rows.append(row)
+        q, k, v, keep = args[:4]
+        row = {"phase": "kernel", "kernel": "attention_block_update_backward",
+               "case": f"ring hop {step}, timed",
+               "kept_fraction": row["kept_fraction"]}
+        row["ms"] = time_ms(
+            lambda: fa._block_update_bwd_cuda(ring_g, *args, scale))
+        row["plain_ms"] = time_ms(
+            lambda: fa.block_update_backward_reference(ring_g, *args,
+                                                       scale))
+        row["autograd_ms"] = time_ms(
+            lambda: fa.block_update_backward(ring_g, *args, scale))
+        row["bound_ms"], row["bound_by"] = block_update_backward_bound(
+            *q.shape[:3], k.shape[2], q.shape[3], keep)
+        row["bound_all_keys_ms"] = block_update_backward_bound(
+            *q.shape[:3], k.shape[2], q.shape[3])[0]
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=(keep != 0)[:, None], scale=scale)
+        row["sdpa_backward_ms_no_carry"] = time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), ring_g[2],
+                                        retain_graph=True))
+        del out, qg, kg, vg
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        row["x_autograd"] = row["ms"] / row["autograd_ms"]
+        timed.append(row)
+        emit(row)
+    keys = ("ms", "plain_ms", "autograd_ms", "bound_ms", "bound_all_keys_ms",
+            "sdpa_backward_ms_no_carry")
+    ring = {key: sum(r[key] for r in timed) for key in keys}
+    hops_n = len(timed)
+    by_share = {by: sum(r["bound_ms"] for r in timed if r["bound_by"] == by)
+                for by in ("bytes", "operations")}
+    out = {"phase": "kernel", "kernel": "attention_block_update_backward",
+           "per_ring": f"sum over the {hops_n} hops of one layer's ring, "
+                       "first training batch, the ring's cotangents",
+           **ring, "x_bound": ring["ms"] / ring["bound_ms"],
+           "per_step": {key: layers * ring[key] for key in keys},
+           "per_step_note": f"{layers} layers x one ring",
+           "cases": len(rows),
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "max_err_over_bound": max(r["max_err_over_bound"] for r in rows),
+           "every_case_bitwise_repeat": all(r["bitwise_repeat"]
+                                            for r in rows)}
+    emit(out)
+    return {**{key: ring[key] / hops_n for key in keys},
+            "per_step": out["per_step"],
+            "bound_by": max(by_share, key=by_share.get),
+            "max_abs_err": out["max_abs_err"],
+            "max_err_over_bound": out["max_err_over_bound"]}
 
 
 def _sp_loss_and_grads(model, mesh, batch, impl: str) -> tuple:
@@ -2027,9 +2306,11 @@ def _grad_gap(a: dict, b: dict) -> dict:
 def _sp_step_profile(model, cfg, batch) -> dict:
     """One training step through the kernel route, after one warm step:
     host wall (synchronised) and, under ``torch.profiler``, the device's
-    busy time, its idle share of the wall, K3's forward kernels, the plain
-    block-update backward (the kernels launched inside its 48 calls) and
-    the busiest kernels."""
+    busy time, its idle share of the wall, K3's forward kernels, its
+    backward kernels (in all and by kernel) and the busiest kernels. The
+    traced step must launch K3's forward kernel 48 times, call the
+    backward kernel's wrapper 48 times with each of its two kernels 48
+    times, and call no plain block-update route."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2044,28 +2325,50 @@ def _sp_step_profile(model, cfg, batch) -> dict:
     trainer.train_step(dx, dy, dw)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    inner = fa.block_update_backward
-    marked_name = "chip_smoke.block_update_backward"
+    inner = fa._block_update_bwd_cuda
+    marked_name = "chip_smoke.block_update_backward_kernel"
 
     def marked_backward(*args, **kwargs):
         with record_function(marked_name):
             return inner(*args, **kwargs)
 
-    fa.block_update_backward = marked_backward
+    # the plain routes, which the kernel route must not reach
+    plain = {name: getattr(fa, name)
+             for name in ("block_update_backward",
+                          "block_update_backward_reference",
+                          "block_update_reference")}
+    plain_calls = dict.fromkeys(plain, 0)
+
+    def counted(name):
+        def call(*args, **kwargs):
+            plain_calls[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+
+    fa._block_update_bwd_cuda = marked_backward
+    for name in plain:
+        setattr(fa, name, counted(name))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             trainer.train_step(dx, dy, dw)
             torch.cuda.synchronize()
     finally:
-        fa.block_update_backward = inner
+        fa._block_update_bwd_cuda = inner
+        for name, fn in plain.items():
+            setattr(fa, name, fn)
     events = prof.key_averages()
     hops = SP_RANKS * SP_MODEL["num_layers"]
     marked = [e for e in events
               if e.key == marked_name and e.device_type == DeviceType.CPU]
     check(len(marked) == 1 and marked[0].count == hops,
-          f"block-update backward ranges in the profiled step: "
+          f"block-update backward kernel calls in the profiled step: "
           f"{[(str(e.device_type), e.count) for e in marked]}")
+    check(not any(plain_calls.values()),
+          f"the profiled step reached a plain block-update route: "
+          f"{plain_calls}")
+    # device work: the kernel and copy events; the wrapper's host range
+    # gets no device time for kernels launched through ctypes
     device = [(e.key, e.self_device_time_total / 1e3, e.count)
               for e in events
               if e.device_type == DeviceType.CUDA and e.key != marked_name
@@ -2075,23 +2378,32 @@ def _sp_step_profile(model, cfg, batch) -> dict:
     k3_calls = sum(n for key, _, n in device if "block_update_kernel" in key)
     check(k3_calls == hops, f"{k3_calls} K3 kernels in the profiled step, "
                             f"expected {hops}")
-    bwd = marked[0].device_time_total / 1e3
+    bwd_kernels = {name: [sum(ms for key, ms, _ in device if name in key),
+                          sum(c for key, _, c in device if name in key)]
+                   for name in BLOCK_BWD_KERNEL_NAMES}
+    check(all(c == hops for _, c in bwd_kernels.values()),
+          f"K3 backward kernels in the profiled step: {bwd_kernels}, "
+          f"expected each {hops} times")
+    bwd = sum(ms for ms, _ in bwd_kernels.values())
     del trainer
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share_of_wall": 1 - busy / wall,
             "block_update_forward_ms": k3,
             "block_update_forward_share_of_busy": k3 / busy,
-            "block_update_plain_backward_ms": bwd,
-            "block_update_plain_backward_share_of_busy": bwd / busy,
+            "block_update_backward_kernel_ms": bwd,
+            "block_update_backward_kernel_share_of_busy": bwd / busy,
+            "block_update_backward_by_kernel": bwd_kernels,
+            "plain_block_update_calls": plain_calls,
             "kernels_launched": sum(n for _, _, n in device),
             "top_kernels": [[key[:80], ms, n] for key, ms, n in
                             sorted(device, key=lambda d: -d[1])[:8]]}
 
 
-def phase_sp_train(card: str, bu: dict | None) -> int:
+def phase_sp_train(card: str, bu: dict | None) -> dict:
     """Train the GPT-2-small-width TransformerTagger through
     ``Trainer.fit_arrays`` on a mesh of ``sp`` virtual ranks (ring
-    attention, K3 per hop); returns K3's launches over the run."""
+    attention, K3 and its backward kernel per hop); returns the launches
+    of K3's forward and backward kernels over the run."""
     import torch
 
     from mmlspark_tpu_torch.models.sequence import (
@@ -2120,11 +2432,15 @@ def phase_sp_train(card: str, bu: dict | None) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.block_update_launches = 0
+    fa.block_update_backward_launches = 0
+    fa.block_update_backward_copies = 0
     t_fit = time.perf_counter()
     trainer.fit_arrays(x, y)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     launches = fa.block_update_launches
+    bwd_launches = fa.block_update_backward_launches
+    bwd_copies = fa.block_update_backward_copies
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hops = SP_RANKS * SP_MODEL["num_layers"]
     check(trainer.global_step == steps, f"{trainer.global_step} steps, "
@@ -2134,7 +2450,10 @@ def phase_sp_train(card: str, bu: dict | None) -> int:
           f"losses {losses}")
     check(launches == hops * steps,
           f"{launches} block-update launches in {steps} steps, expected "
-          f"{hops} per step (the backward launches none)")
+          f"{hops} per step")
+    check(bwd_launches == hops * steps,
+          f"{bwd_launches} block-update backward kernel calls in {steps} "
+          f"steps, expected {hops} per step")
     step_ms = trainer.step_ms
     tokens_per_s = sum(real_tokens[1:]) / (sum(step_ms[1:]) / 1e3)
     stats = trainer.input_stats
@@ -2161,11 +2480,16 @@ def phase_sp_train(card: str, bu: dict | None) -> int:
     logit_max = float(plain_logits.abs().max())
     check(bool(torch.isfinite(ring_logits).all()), "ring logits not finite")
     del ring_logits, plain_logits
+    bwd_before = fa.block_update_backward_launches
     loss_k, grads_k = _sp_loss_and_grads(model, mesh, first, "cuda")
-    launched = fa.block_update_launches
+    check(fa.block_update_backward_launches == bwd_before + hops,
+          f"the kernel route's first step called the backward kernel "
+          f"{fa.block_update_backward_launches - bwd_before} times, "
+          f"expected {hops}")
+    launched = (fa.block_update_launches, fa.block_update_backward_launches)
     loss_p, grads_p = _sp_loss_and_grads(model, mesh, first, "torch")
-    check(fa.block_update_launches == launched,
-          "the plain route launched the kernel")
+    check((fa.block_update_launches, fa.block_update_backward_launches)
+          == launched, "the plain route launched a kernel")
     gap = _grad_gap(grads_k, grads_p)
     del grads_k, grads_p
     torch.cuda.empty_cache()
@@ -2186,6 +2510,16 @@ def phase_sp_train(card: str, bu: dict | None) -> int:
            "block_update_launches_per_step": launches / steps,
            "block_update_share_of_step": None if bu is None
            else hops * bu["ms"] / step_med,
+           "block_update_backward_launches": bwd_launches,
+           "block_update_backward_launches_per_step": bwd_launches / steps,
+           "block_update_backward_copies_per_step": bwd_copies / steps,
+           "block_update_backward_share_of_step": None if bu is None
+           else hops * bu["backward"]["ms"] / step_med,
+           # the autograd route (the plain update recomputed and
+           # differentiated, the backward before the kernel) over one
+           # step's hops, from the block_update phase's timings
+           "block_update_plain_backward_ms": None if bu is None
+           else bu["backward"]["per_step"]["autograd_ms"],
            "peak_memory_gb": peak_gb,
            "first_batch": {
                "ring_logits_max_abs_err_vs_unsharded": logit_err,
@@ -2209,7 +2543,7 @@ def phase_sp_train(card: str, bu: dict | None) -> int:
           f"first-step gradients through K3 differ from the plain update's "
           f"by {gap}, past {SP_GRAD_TOL} (relative norm, over all "
           f"parameters or in one tensor)")
-    return launches
+    return {"forward": launches, "backward": bwd_launches}
 
 
 def main() -> int:
@@ -2310,9 +2644,26 @@ def main() -> int:
                 "name": "attention_block_update", "route": "cuda",
                 "source": "mmlspark_tpu_torch/ops/csrc/block_update.cu",
                 "replaces": "mmlspark_tpu/ops/pallas/attention.py:432",
-                "launches": launches, "max_abs_err": bu["max_abs_err"],
+                "launches": launches["forward"],
+                "max_abs_err": bu["max_abs_err"],
                 "ms": bu["ms"], "plain_ms": bu["plain_ms"],
                 "bound_ms": bu["bound_ms"], "bound_by": bu["bound_by"],
+                "library_ms": None})
+            bwd = bu["backward"]
+            # the JAX package differentiates _online_update with jax.vjp
+            # through XLA; the kernel is that vjp in closed form. plain_ms
+            # is the closed form, autograd_ms the plain update recomputed
+            # and differentiated (per hop, the mean over one ring)
+            kernels.append({
+                "name": "attention_block_update_backward", "route": "cuda",
+                "source": "mmlspark_tpu_torch/ops/csrc/block_update_bwd.cu",
+                "replaces": "mmlspark_tpu/ops/pallas/attention.py:59",
+                "launches": launches["backward"],
+                "max_abs_err": bwd["max_abs_err"],
+                "max_err_over_bound": bwd["max_err_over_bound"],
+                "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+                "autograd_ms": bwd["autograd_ms"],
+                "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
                 "library_ms": None})
     if kernels:
         emit({"kernels": kernels})

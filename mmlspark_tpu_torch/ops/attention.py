@@ -58,11 +58,19 @@ package's ``xla`` route: one ``_online_update`` over the whole block, no
 inner key-block loop); :func:`attention_block_update` dispatches on
 ``impl`` like the others; ``block_update_launches`` counts the launches of
 ``ops/csrc/block_update.cu``. The kernel route is an autograd function
-whose backward recomputes the plain update and differentiates it, as the
-JAX package has no backward kernel for it. The wrapper makes every operand
-contiguous (the ring's rank-major fold is a copy already) and raises on
-non-float32 operands, mismatched shapes and a ``D`` the kernel does not
-take, whichever route is taken.
+whose backward is a kernel too (``ops/csrc/block_update_bwd.cu``, two
+launches a call): the JAX package differentiates ``_online_update`` with
+``jax.vjp`` through XLA, and the kernel computes that vjp in closed form.
+:func:`block_update_backward_reference` is its plain version (the same
+closed form in plain PyTorch, no autograd) and
+:func:`block_update_backward_error_bound` the tolerance it is held to;
+:func:`block_update_backward` (the plain update recomputed under autograd)
+stays as a measured reference, and nothing on the card's path calls it.
+``block_update_backward_launches`` counts the backward kernel's calls and
+``block_update_backward_copies`` the cotangents it had to make contiguous.
+The wrapper makes every operand contiguous (the ring's rank-major fold is
+a copy already) and raises on non-float32 operands, mismatched shapes and
+a ``D`` the kernel does not take, whichever route is taken.
 """
 
 from __future__ import annotations
@@ -89,6 +97,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 decode_launches = 0
 block_update_launches = 0
+block_update_backward_launches = 0
+block_update_backward_copies = 0
 _count_lock = threading.Lock()
 
 
@@ -514,8 +524,10 @@ def _block_update_cuda(q4, k4, v4, keep3, m, denom, acc, scale: float):
 def block_update_backward(grads, q4, k4, v4, keep3, m, denom, acc,
                           scale: float):
     """The gradients of ``q4``, ``k4``, ``v4``, ``m``, ``denom`` and
-    ``acc``: the plain update recomputed under autograd and differentiated
-    against ``grads``, the gradients of the fresh ``(m, denom, acc)``."""
+    ``acc`` by autograd: the plain update recomputed and differentiated
+    against ``grads``, the gradients of the fresh ``(m, denom, acc)``. A
+    measured reference only; the kernel route's backward is
+    :func:`_block_update_bwd_cuda`."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_() for t in
                   (q4, k4, v4, m, denom, acc)]
@@ -524,8 +536,203 @@ def block_update_backward(grads, q4, k4, v4, keep3, m, denom, acc,
         return torch.autograd.grad(outs, inputs, grads)
 
 
+def _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
+                          scale: float) -> dict:
+    """The closed form's float32 terms: ``[N, H, Tq, Tk]`` scores ``s``
+    (-inf where masked), ``p``, ``dp``, ``ds`` (= p·dp) and the tie mask,
+    and per row ``[N, H, Tq, 1]`` the block max ``b``, ``m_new``, ``c``,
+    ``dc``, ``dm_new``, the max's split ``to_m``/``to_b``, the count of
+    tied keys and the ``share`` each takes; ``keep`` is ``[N, 1, Tq,
+    Tk]``."""
+    g_m, g_d, g_a = grads
+    keep = (keep3 != 0)[:, None]
+    s = torch.where(keep, torch.matmul(q4, k4.transpose(-1, -2)) * scale,
+                    float("-inf"))
+    b = s.amax(dim=-1, keepdim=True)
+    m_new = torch.maximum(m, b)
+    # guard -inf - -inf: c is 0 while m is -inf, p is 0 where masked
+    c = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+    p = torch.where(keep, torch.exp(s - m_new), 0.0)
+    dp = torch.matmul(g_a, v4.transpose(-1, -2)) + g_d
+    ds = p * dp
+    dc = (g_a * acc).sum(dim=-1, keepdim=True) + g_d * denom
+    dm_new = g_m - c * dc - ds.sum(dim=-1, keepdim=True)
+    # torch.maximum and jnp.maximum pass half to each side at a tie; amax
+    # and JAX's max split their share evenly over the tied keys
+    zero = torch.zeros_like(dm_new)
+    half = torch.where(m == b, 0.5 * dm_new, zero)
+    to_m = torch.where(m > b, dm_new, half)
+    to_b = torch.where(b > m, dm_new, half)
+    tie = keep & (s == b)
+    count = tie.sum(dim=-1, keepdim=True)
+    share = torch.where(count > 0, to_b / count.clamp_min(1), zero)
+    return {"keep": keep, "s": s, "b": b, "m_new": m_new, "c": c, "p": p,
+            "dp": dp, "ds": ds, "dc": dc, "dm_new": dm_new, "to_m": to_m,
+            "tie": tie, "count": count, "share": share}
+
+
+def block_update_backward_reference(grads, q4, k4, v4, keep3, m, denom,
+                                    acc, scale: float):
+    """The gradients of :func:`block_update_reference` at ``grads`` (those
+    of the fresh ``(m, denom, acc)``) in closed form, plain PyTorch, no
+    autograd: ``(dq, dk, dv, dm, ddenom, dacc)``, the order of
+    :func:`block_update_backward`.
+
+    ``dacc = c·gA``, ``ddenom = c·gD``; ``dp = gA·vᵀ + gD``, ``dv =
+    pᵀ·gA``; ``dm' = gm − c·dc − Σ p·dp`` with ``dc = gA·acc + gD·denom``,
+    split between ``m`` and the block max ``b`` as ``torch.maximum`` splits
+    it (half each at a tie), ``b``'s part evenly over the kept keys that
+    reach it; ``dm = c·dc + m's part``; ``ds = p·dp + each tied key's
+    share``, ``dq = scale·ds·k``, ``dk = scale·dsᵀ·q``. A row with ``m =
+    -inf`` and no kept key gets NaN in ``dm`` (as autograd of the plain
+    update gives) and zeros elsewhere."""
+    t = _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
+                              scale)
+    ds = t["ds"] + torch.where(t["tie"], t["share"], 0.0)
+    dq = torch.matmul(ds, k4) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q4) * scale
+    dv = torch.matmul(t["p"].transpose(-1, -2), grads[2])
+    dm = torch.where(torch.isfinite(t["m_new"]), t["c"] * t["dc"] + t["to_m"],
+                     float("nan"))
+    return dq, dk, dv, dm, t["c"] * grads[1], t["c"] * grads[2]
+
+
+def block_update_backward_error_bound(grads, q4, k4, v4, keep3, m, denom,
+                                      acc, scale: float, rel: float,
+                                      exact: bool = False):
+    """How far another float32 evaluation of the closed form may lie from
+    :func:`block_update_backward_reference` when its sums run in another
+    order: bounds for ``(dq, dk, dv, dm, ddenom, dacc)``, float64.
+
+    Every value moves by ``rel`` of the sizes of its terms (a sum taken in
+    another order moves by a share of its terms' sizes, not of its own):
+    a score by ``S = scale·|q|·|k|``, the block max and ``m'`` by the row's
+    largest ``S`` (``σ``), ``p`` by ``p·(S + σ + |s − m'| + 1)``, ``c``
+    likewise, ``dp`` by ``|gA|·|v| + |gD|``, each ``p·dp`` by the product
+    of the two, ``dm'`` by the sizes of all its terms, and each output
+    sum by its terms'. Unless ``exact`` (the inputs make every score exact
+    on both sides), a row whose ``m`` and ``b`` lie within ``rel·σ`` of
+    each other, or whose block max is within rounding of a second kept
+    key, may split ``dm'`` the other way: it is granted ``|dm'|`` in
+    ``dm`` and twice that times ``|k|`` and ``|q|`` for each such key in
+    ``dq`` and ``dk``."""
+    t = _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
+                              scale)
+    f = torch.float64
+    keep = t["keep"]
+    g_m, g_d = grads[0].to(f), grads[1].to(f)
+    aq, ak, av, aga = (x.to(f).abs() for x in (q4, k4, v4, grads[2]))
+    s, b, mn = t["s"].to(f), t["b"].to(f), t["m_new"].to(f)
+    p, dp, ds0 = t["p"].to(f), t["dp"].to(f), t["ds"].to(f)
+    c, dc, mm = t["c"].to(f), t["dc"].to(f), m.to(f)
+    big_s = torch.where(keep, scale * torch.matmul(aq, ak.transpose(-1, -2)),
+                        0.0)
+    sigma = big_s.amax(dim=-1, keepdim=True)
+    e = big_s + sigma + torch.where(keep, (s - mn).abs(), 0.0) + 1
+    dp_size = torch.matmul(aga, av.transpose(-1, -2)) + g_d.abs()
+    w = p * (e * dp.abs() + dp_size) + ds0.abs()
+    c_rel = torch.where(torch.isfinite(mm), sigma + (mm - mn).abs() + 1, 0.0)
+    cdc = (c * dc).abs()
+    dc_size = ((aga * acc.to(f).abs()).sum(dim=-1, keepdim=True)
+               + (g_d * denom.to(f)).abs())
+    y = c * (c_rel * dc.abs() + dc_size)
+    big_m = g_m.abs() + cdc + y + w.sum(dim=-1, keepdim=True)
+    per_tie = torch.where(
+        t["count"] > 0,
+        big_m / t["count"].clamp_min(1) + t["share"].to(f).abs(), 0.0)
+    wt = w + torch.where(t["tie"], per_tie, 0.0)
+    dq = rel * scale * torch.matmul(wt, ak)
+    dk = rel * scale * torch.matmul(wt.transpose(-1, -2), aq)
+    dv = rel * torch.matmul((p * (e + 1)).transpose(-1, -2), aga)
+    dm = rel * (big_m + y + cdc)
+    dden = rel * c * c_rel * g_d.abs()
+    dacc = rel * c * c_rel * aga
+    if not exact:
+        live = torch.isfinite(b)
+        near_mb = live & torch.isfinite(mm) & ((mm - b).abs() <= rel * sigma)
+        near_key = keep & (s >= b - rel * (big_s + sigma))
+        flip = live & (near_mb | (near_key.sum(dim=-1, keepdim=True) > 1))
+        adm = torch.where(flip, t["dm_new"].to(f).abs() + rel * big_m, 0.0)
+        allow = torch.where(near_key, 2 * adm, 0.0)
+        dq = dq + scale * torch.matmul(allow, ak)
+        dk = dk + scale * torch.matmul(allow.transpose(-1, -2), aq)
+        dm = dm + torch.where(near_mb, adm, 0.0)
+    return dq, dk, dv, dm, dden, dacc
+
+
+# block_update_bwd's C arguments: 17 pointers (q, k, v, mask, the carry,
+# the cotangents, the six gradients, the row scratch), N, H, Tq, Tk, D, the
+# scale and the stream
+_BLOCK_BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _block_update_bwd_fn():
+    """The C entry point of ``ops/csrc/block_update_bwd.cu``, built on
+    first use, every argument typed."""
+    from mmlspark_tpu_torch.ops import _build
+    fn = _build.load("block_update_bwd").block_update_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _BLOCK_BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _block_update_bwd_cuda(grads, q4, k4, v4, keep3, m, denom, acc,
+                           scale: float):
+    """Launch the backward kernel on the current stream; returns ``(dq, dk,
+    dv, dm, ddenom, dacc)`` as :func:`block_update_backward_reference`
+    does. A cotangent that is not contiguous is copied first (counted in
+    ``block_update_backward_copies``). The outputs and the ``[N, H, Tq,
+    3]`` float32 row scratch are allocated here; the kernel allocates
+    nothing."""
+    global block_update_backward_launches, block_update_backward_copies
+    if not q4.is_cuda:
+        raise ValueError("the block-update backward kernel needs CUDA "
+                         f"tensors; got q4 on {q4.device}")
+    _check_block_operands(q4, k4, v4, keep3, m, denom, acc)
+    gs = []
+    for name, g, ref in zip(("g_m", "g_denom", "g_acc"), grads,
+                            (m, denom, acc)):
+        if g.shape != ref.shape or g.dtype != torch.float32 \
+                or g.device != ref.device:
+            raise ValueError(
+                f"{name} {tuple(g.shape)} {g.dtype} on {g.device} does not "
+                f"match {tuple(ref.shape)} float32 on {ref.device}")
+        if not g.is_contiguous():
+            g = g.contiguous()
+            with _count_lock:
+                block_update_backward_copies += 1
+        gs.append(g)
+    q4, k4, v4, m, denom, acc = (t.contiguous() for t in
+                                 (q4, k4, v4, m, denom, acc))
+    keep = keep3 if keep3.dtype == torch.int8 else keep3.to(torch.bool).to(
+        torch.int8)
+    keep = keep.contiguous()
+    n, h, tq, d = q4.shape
+    tk = k4.shape[2]
+    fn = _block_update_bwd_fn()
+    outs = [torch.empty_like(t) for t in (q4, k4, v4, m, denom, acc)]
+    rowstat = torch.empty((n, h, tq, 3), dtype=torch.float32,
+                          device=q4.device)
+    with torch.cuda.device(q4.device):
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        with _count_lock:
+            block_update_backward_launches += 1
+        err = fn(q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+                 keep.data_ptr(), m.data_ptr(), denom.data_ptr(),
+                 acc.data_ptr(), *(g.data_ptr() for g in gs),
+                 *(o.data_ptr() for o in outs), rowstat.data_ptr(),
+                 n, h, tq, tk, d, scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"block_update backward kernel launch failed: cudaError {err} "
+            f"(N={n}, H={h}, Tq={tq}, Tk={tk}, D={d})")
+    return tuple(outs)
+
+
 class _BlockUpdateKernel(torch.autograd.Function):
-    """Kernel forward; backward through the plain version's autograd."""
+    """The forward and backward kernels."""
 
     @staticmethod
     def forward(ctx, q4, k4, v4, keep3, m, denom, acc, scale):
@@ -536,7 +743,7 @@ class _BlockUpdateKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_m, g_denom, g_acc):
         q4, k4, v4, keep3, m, denom, acc = ctx.saved_tensors
-        gq, gk, gv, gm, gd, ga = block_update_backward(
+        gq, gk, gv, gm, gd, ga = _block_update_bwd_cuda(
             (g_m, g_denom, g_acc), q4, k4, v4, keep3, m, denom, acc,
             ctx.scale)
         return gq, gk, gv, None, gm, gd, ga, None

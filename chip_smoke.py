@@ -12,7 +12,7 @@ Phases, each printing JSON lines:
    together) with the registers and spills ``ptxas`` reports and the
    count of tensor-core instructions (``HMMA``/``HGMMA``, from
    ``cuobjdump -sass``) in each kernel function; the bf16 flash-attention
-   kernel must have some;
+   kernel and both of K3's backward kernels must have some;
 2. **attention** — the flash-attention kernel against its plain PyTorch
    version on the card, at the shapes the serving path gives it (ViT-B/16
    attention: B in {1, 8, 32}, H=12, T=196, D=64, bf16 and f32, on the
@@ -97,9 +97,11 @@ Phases, each printing JSON lines:
    two integer cases whose scores are exact on both sides (duplicated
    keys; the carried m equal to the row max), each launched twice and
    equal bit for bit, each gradient within
-   ``block_update_backward_error_bound``, with its time per hop, the
-   closed form's, the autograd route's, SDPA's backward over the same
-   block without the carry (for reference) and the bound;
+   ``block_update_backward_error_bound``, with its time per hop in all
+   and by launch (``torch.profiler``) and on hop 1's block with every key
+   kept, the closed form's, the autograd route's, SDPA's backward over the
+   same block without the carry (for reference), the bound on the CUDA
+   cores and the floor on the tensor cores in 3xTF32;
 10. **sp_train** — the causal TransformerTagger at GPT-2 small's widths
     (weights from a seed, pad token 0) trained through
     ``Trainer.fit_arrays`` with ``mesh_spec={"sp": 4}`` for 5 steps of 8
@@ -145,7 +147,7 @@ DEV = "cuda"
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
 # device memory and operations/s by operand type
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # flash attention, kernel vs plain version, both accumulating in float32.
 # The f32 instance multiplies the same float32 operands; they differ in
@@ -285,9 +287,19 @@ BLOCK_TOL = 1e-5
 # K3's backward kernel vs its plain version (the closed form), float32 from
 # the same operands: the kernel sums the products over D, the keys and the
 # query rows in its own order, takes the block max from its own scores and
-# uses expf. Each gradient is held to ops/attention.py
+# takes p by ex2.approx. Each gradient is held to ops/attention.py
 # block_update_backward_error_bound at BLOCK_BWD_REL of the sizes of its
-# terms: a float32 sum of n terms taken in another order moves by at most
+# terms. The kernel runs its five products on the tensor cores in 3xTF32
+# (each operand split into a TF32 high part and the TF32 rounding of the
+# rest; lo.hi + hi.lo + hi.hi): the dropped lo.lo and the rounding of lo
+# leave about 3·2^-22 = 6 float32 epsilons of each product, and the tensor
+# core truncates as it adds each group of 8 products to the accumulator
+# (about one epsilon of the partial sum a step); small integers are exact
+# in the high part, so integer scores stay exact. On the CPU the closed
+# form with its products so emulated lies within 0.013 of the bound and
+# with one TF32 product each 12 to 33 times past it
+# (tests/test_torch_block_update_backward.py). A float32 sum of n
+# terms taken in another order moves by at most
 # (n − 1)·2^-24 of the sum of its terms' sizes and in practice by about
 # √n·2^-24; the longest sums run over Tk = 256 keys or D ≤ 128 products,
 # √256·2^-24 = 8 float32 epsilons, and 64 epsilons is 8 times that (the
@@ -302,6 +314,9 @@ BLOCK_BWD_REL = 64 * 2.0 ** -23
 # float32 operations per kept (query, key) pair and head column of the
 # backward: five products (s, dp, dq, dk, dv), two operations each
 BLOCK_BWD_OPS_PER_PAIR = 10
+# TF32 tensor-core products per float32 product of the backward kernel
+# (3xTF32: lo.hi, hi.lo, hi.hi)
+BLOCK_BWD_TF32_PRODUCTS = 3
 # the backward's two kernels in a profiler trace, one each a call
 BLOCK_BWD_KERNEL_NAMES = ("bu_bwd_dq", "bu_bwd_dkdv")
 # sequence-parallel training: the generation path's model (GPT-2 small's
@@ -508,6 +523,13 @@ def phase_device() -> dict:
     check(len(bf16) > 0 and all(sum(c.values()) > 0 for c in bf16.values()),
           f"the bf16 flash-attention kernel has no tensor-core "
           f"instructions: {bf16}")
+    for name in BLOCK_BWD_KERNEL_NAMES:
+        fns = {fn: c for fn, c in tensor_ops["block_update_bwd"].items()
+               if name in fn}
+        check(len(fns) > 0 and all(sum(c.values()) > 0
+                                   for c in fns.values()),
+              f"K3's backward kernel {name} has no tensor-core "
+              f"instructions: {fns}")
     return out
 
 
@@ -1783,7 +1805,8 @@ def block_update_bound(n, h, tq, tk, d, keep=None) -> tuple[float, str]:
                  4 * h * d * pairs, "float32")
 
 
-def block_update_backward_bound(n, h, tq, tk, d, keep=None
+def block_update_backward_bound(n, h, tq, tk, d, keep=None,
+                                tensor_cores: bool = False
                                 ) -> tuple[float, str]:
     """K3's backward on these operands: q, k, v, the carry (m, denom
     [N,H,Tq,1] and acc [N,H,Tq,D]), the three cotangents of the carry and
@@ -1792,20 +1815,24 @@ def block_update_backward_bound(n, h, tq, tk, d, keep=None
     With ``keep`` (this run's ``[N, Tq, Tk]`` mask) only the work the
     function needs: the kept (query, key) pairs' operations, the q rows
     that keep some key and the K/V rows of the keys that some query keeps
-    (every output is written all the same)."""
+    (every output is written all the same). With ``tensor_cores`` the
+    floor on the units the kernel uses: each float32 operation as
+    BLOCK_BWD_TF32_PRODUCTS TF32 operations at the TF32 peak."""
     carry = n * h * tq * (d + 2)
     outputs = n * h * (tq + 2 * tk) * d
     fixed = n * tq * tk + 4 * (3 * carry + outputs)
+    per_op, dtype = ((BLOCK_BWD_TF32_PRODUCTS, "tf32") if tensor_cores
+                     else (1, "float32"))
     if keep is None:
         return bound(fixed + 4 * outputs,
-                     BLOCK_BWD_OPS_PER_PAIR * n * h * tq * tk * d,
-                     "float32")
+                     per_op * BLOCK_BWD_OPS_PER_PAIR * n * h * tq * tk * d,
+                     dtype)
     kept = keep != 0
     pairs = int(kept.sum())
     q_rows = int(kept.any(dim=2).sum())
     kv_rows = int(kept.any(dim=1).sum())
     return bound(fixed + 4 * h * d * (q_rows + 2 * kv_rows),
-                 BLOCK_BWD_OPS_PER_PAIR * h * d * pairs, "float32")
+                 per_op * BLOCK_BWD_OPS_PER_PAIR * h * d * pairs, dtype)
 
 
 def kernel_tile_keep(keep):
@@ -2188,19 +2215,93 @@ def phase_block_update() -> dict:
             "max_abs_err": worst, "backward": bwd}
 
 
-def _block_update_backward_hops(hops, scale, gen, rows) -> dict:
-    """K3's backward kernel at every hop of the ring with the ring's own
-    cotangents (a loss on its output) and with seeded random ones, and its
-    times per hop with the ring's (L2 warm): the kernel, the closed form,
-    the autograd route and, for reference, SDPA's backward over the same
-    block without the carry (the graph kept, the backward only; rows with
-    no kept key give NaN there), beside the bound. ``rows`` holds the
-    edge cases' rows. Returns the per-hop means of one ring (the kernels
-    line's figures) and the worst error and ratio."""
+def kernel_ms_by_name(fn, names, reps: int = 10) -> dict:
+    """Device time in ms per launch of each kernel whose name holds one of
+    ``names``: the mean over the launches of ``reps`` calls of ``fn``
+    traced by ``torch.profiler`` after 3 warm calls (L2 warm, launches back
+    to back). Each launches once a call, but a trace may miss some (after
+    other traced phases in the same process it missed 3 of 11), so the
+    mean is over those it holds, at least one of each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name in names:
+        mine = [e for e in events if name in e.key]
+        count = sum(e.count for e in mine)
+        check(0 < count <= reps,
+              f"{name}: {count} launches traced in {reps} calls")
+        out[name] = sum(e.self_device_time_total for e in mine) / 1e3 / count
+    return out
+
+
+def _time_block_backward(args, cots, scale, case) -> dict:
+    """K3's backward kernel timed on one input (L2 warm): in all and by
+    launch, beside the closed form, the autograd route and, for reference,
+    SDPA's backward over the same block without the carry (the graph
+    kept, the backward only; rows with no kept key give NaN there); the
+    bound over the kept pairs on the CUDA cores (the function's work) and
+    on the tensor cores in 3xTF32 (the units the kernel uses), and over
+    every key. Emits and returns the row."""
     import torch
     import torch.nn.functional as F
 
     from mmlspark_tpu_torch.ops import attention as fa
+    q, k, v, keep = args[:4]
+    shape = (*q.shape[:3], k.shape[2], q.shape[3])
+    row = {"phase": "kernel", "kernel": "attention_block_update_backward",
+           "case": f"{case}, timed",
+           "kept_fraction": float((keep != 0).float().mean())}
+
+    def kernel():
+        return fa._block_update_bwd_cuda(cots, *args, scale)
+
+    row["ms"] = time_ms(kernel)
+    row["ms_by_launch"] = kernel_ms_by_name(kernel, BLOCK_BWD_KERNEL_NAMES)
+    row["plain_ms"] = time_ms(
+        lambda: fa.block_update_backward_reference(cots, *args, scale))
+    row["autograd_ms"] = time_ms(
+        lambda: fa.block_update_backward(cots, *args, scale))
+    row["bound_ms"], row["bound_by"] = block_update_backward_bound(
+        *shape, keep)
+    row["tc_bound_ms"], row["tc_bound_by"] = block_update_backward_bound(
+        *shape, keep, tensor_cores=True)
+    row["bound_all_keys_ms"] = block_update_backward_bound(*shape)[0]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qg, kg, vg, attn_mask=(keep != 0)[:, None], scale=scale)
+    row["sdpa_backward_ms_no_carry"] = time_ms(
+        lambda: torch.autograd.grad(out, (qg, kg, vg), cots[2],
+                                    retain_graph=True))
+    del out, qg, kg, vg
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["x_tc_bound"] = row["ms"] / row["tc_bound_ms"]
+    row["x_plain"] = row["ms"] / row["plain_ms"]
+    row["x_autograd"] = row["ms"] / row["autograd_ms"]
+    row["x_sdpa_backward"] = row["ms"] / row["sdpa_backward_ms_no_carry"]
+    emit(row)
+    return row
+
+
+def _block_update_backward_hops(hops, scale, gen, rows) -> dict:
+    """K3's backward kernel at every hop of the ring with the ring's own
+    cotangents (a loss on its output) and with seeded random ones, and its
+    times per hop with the ring's (``_time_block_backward``), and on hop
+    1's block with every key kept. ``rows`` holds the edge cases' rows.
+    Returns the per-hop means of one ring (the kernels line's figures) and
+    the worst error and ratio."""
+    import torch
+
     layers = SP_MODEL["num_layers"]
     cots = _ring_cotangents(hops, scale)
     timed = []
@@ -2208,38 +2309,20 @@ def _block_update_backward_hops(hops, scale, gen, rows) -> dict:
         rows.append(_block_bwd_case(
             args, _random_cotangents(args, gen), scale,
             f"ring hop {step}, random cotangents"))
-        row = _block_bwd_case(args, ring_g, scale,
-                              f"ring hop {step}, the ring's cotangents")
-        rows.append(row)
-        q, k, v, keep = args[:4]
-        row = {"phase": "kernel", "kernel": "attention_block_update_backward",
-               "case": f"ring hop {step}, timed",
-               "kept_fraction": row["kept_fraction"]}
-        row["ms"] = time_ms(
-            lambda: fa._block_update_bwd_cuda(ring_g, *args, scale))
-        row["plain_ms"] = time_ms(
-            lambda: fa.block_update_backward_reference(ring_g, *args,
-                                                       scale))
-        row["autograd_ms"] = time_ms(
-            lambda: fa.block_update_backward(ring_g, *args, scale))
-        row["bound_ms"], row["bound_by"] = block_update_backward_bound(
-            *q.shape[:3], k.shape[2], q.shape[3], keep)
-        row["bound_all_keys_ms"] = block_update_backward_bound(
-            *q.shape[:3], k.shape[2], q.shape[3])[0]
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(
-            qg, kg, vg, attn_mask=(keep != 0)[:, None], scale=scale)
-        row["sdpa_backward_ms_no_carry"] = time_ms(
-            lambda: torch.autograd.grad(out, (qg, kg, vg), ring_g[2],
-                                        retain_graph=True))
-        del out, qg, kg, vg
-        row["x_bound"] = row["ms"] / row["bound_ms"]
-        row["x_autograd"] = row["ms"] / row["autograd_ms"]
-        timed.append(row)
-        emit(row)
-    keys = ("ms", "plain_ms", "autograd_ms", "bound_ms", "bound_all_keys_ms",
-            "sdpa_backward_ms_no_carry")
+        rows.append(_block_bwd_case(args, ring_g, scale,
+                                    f"ring hop {step}, the ring's "
+                                    "cotangents"))
+        timed.append(_time_block_backward(args, ring_g, scale,
+                                          f"ring hop {step}"))
+    q, k, v, keep, m, den, acc = hops[1]
+    dense = _time_block_backward(
+        (q, k, v, torch.ones_like(keep), m, den, acc), cots[1], scale,
+        "every key kept, hop 1's carry and cotangents")
+    keys = ("ms", "plain_ms", "autograd_ms", "bound_ms", "tc_bound_ms",
+            "bound_all_keys_ms", "sdpa_backward_ms_no_carry")
     ring = {key: sum(r[key] for r in timed) for key in keys}
+    ring["ms_by_launch"] = {name: sum(r["ms_by_launch"][name] for r in timed)
+                            for name in BLOCK_BWD_KERNEL_NAMES}
     hops_n = len(timed)
     by_share = {by: sum(r["bound_ms"] for r in timed if r["bound_by"] == by)
                 for by in ("bytes", "operations")}
@@ -2247,6 +2330,10 @@ def _block_update_backward_hops(hops, scale, gen, rows) -> dict:
            "per_ring": f"sum over the {hops_n} hops of one layer's ring, "
                        "first training batch, the ring's cotangents",
            **ring, "x_bound": ring["ms"] / ring["bound_ms"],
+           "x_tc_bound": ring["ms"] / ring["tc_bound_ms"],
+           "by_hop_ms": [r["ms"] for r in timed],
+           "every_key_kept": {key: dense[key] for key in (
+               *keys, "ms_by_launch", "x_bound", "x_tc_bound")},
            "per_step": {key: layers * ring[key] for key in keys},
            "per_step_note": f"{layers} layers x one ring",
            "cases": len(rows),
@@ -2664,7 +2751,7 @@ def main() -> int:
                 "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
                 "autograd_ms": bwd["autograd_ms"],
                 "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-                "library_ms": None})
+                "tc_bound_ms": bwd["tc_bound_ms"], "library_ms": None})
     if kernels:
         emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

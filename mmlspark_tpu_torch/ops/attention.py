@@ -67,7 +67,8 @@ closed form in plain PyTorch, no autograd) and
 :func:`block_update_backward` (the plain update recomputed under autograd)
 stays as a measured reference, and nothing on the card's path calls it.
 ``block_update_backward_launches`` counts the backward kernel's calls and
-``block_update_backward_copies`` the cotangents it had to make contiguous.
+``block_update_backward_copies`` the cotangents it had to copy (not
+contiguous, or ``g_acc`` off 16 bytes).
 The wrapper makes every operand contiguous (the ring's rank-major fold is
 a copy already) and raises on non-float32 operands, mismatched shapes and
 a ``D`` the kernel does not take, whichever route is taken.
@@ -537,23 +538,23 @@ def block_update_backward(grads, q4, k4, v4, keep3, m, denom, acc,
 
 
 def _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
-                          scale: float) -> dict:
+                          scale: float, matmul=torch.matmul) -> dict:
     """The closed form's float32 terms: ``[N, H, Tq, Tk]`` scores ``s``
     (-inf where masked), ``p``, ``dp``, ``ds`` (= p·dp) and the tie mask,
     and per row ``[N, H, Tq, 1]`` the block max ``b``, ``m_new``, ``c``,
     ``dc``, ``dm_new``, the max's split ``to_m``/``to_b``, the count of
     tied keys and the ``share`` each takes; ``keep`` is ``[N, 1, Tq,
-    Tk]``."""
+    Tk]``. ``matmul`` takes the products s and dp."""
     g_m, g_d, g_a = grads
     keep = (keep3 != 0)[:, None]
-    s = torch.where(keep, torch.matmul(q4, k4.transpose(-1, -2)) * scale,
+    s = torch.where(keep, matmul(q4, k4.transpose(-1, -2)) * scale,
                     float("-inf"))
     b = s.amax(dim=-1, keepdim=True)
     m_new = torch.maximum(m, b)
     # guard -inf - -inf: c is 0 while m is -inf, p is 0 where masked
     c = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
     p = torch.where(keep, torch.exp(s - m_new), 0.0)
-    dp = torch.matmul(g_a, v4.transpose(-1, -2)) + g_d
+    dp = matmul(g_a, v4.transpose(-1, -2)) + g_d
     ds = p * dp
     dc = (g_a * acc).sum(dim=-1, keepdim=True) + g_d * denom
     dm_new = g_m - c * dc - ds.sum(dim=-1, keepdim=True)
@@ -572,7 +573,7 @@ def _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
 
 
 def block_update_backward_reference(grads, q4, k4, v4, keep3, m, denom,
-                                    acc, scale: float):
+                                    acc, scale: float, matmul=torch.matmul):
     """The gradients of :func:`block_update_reference` at ``grads`` (those
     of the fresh ``(m, denom, acc)``) in closed form, plain PyTorch, no
     autograd: ``(dq, dk, dv, dm, ddenom, dacc)``, the order of
@@ -585,13 +586,15 @@ def block_update_backward_reference(grads, q4, k4, v4, keep3, m, denom,
     reach it; ``dm = c·dc + m's part``; ``ds = p·dp + each tied key's
     share``, ``dq = scale·ds·k``, ``dk = scale·dsᵀ·q``. A row with ``m =
     -inf`` and no kept key gets NaN in ``dm`` (as autograd of the plain
-    update gives) and zeros elsewhere."""
+    update gives) and zeros elsewhere. ``matmul`` takes the five products
+    (s, dp, dq, dk, dv), so that another arithmetic for them, as the
+    kernel's, can be held to the error bound on the CPU."""
     t = _block_backward_terms(grads, q4, k4, v4, keep3, m, denom, acc,
-                              scale)
+                              scale, matmul)
     ds = t["ds"] + torch.where(t["tie"], t["share"], 0.0)
-    dq = torch.matmul(ds, k4) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q4) * scale
-    dv = torch.matmul(t["p"].transpose(-1, -2), grads[2])
+    dq = matmul(ds, k4) * scale
+    dk = matmul(ds.transpose(-1, -2), q4) * scale
+    dv = matmul(t["p"].transpose(-1, -2), grads[2])
     dm = torch.where(torch.isfinite(t["m_new"]), t["c"] * t["dc"] + t["to_m"],
                      float("nan"))
     return dq, dk, dv, dm, t["c"] * grads[1], t["c"] * grads[2]
@@ -682,10 +685,11 @@ def _block_update_bwd_cuda(grads, q4, k4, v4, keep3, m, denom, acc,
                            scale: float):
     """Launch the backward kernel on the current stream; returns ``(dq, dk,
     dv, dm, ddenom, dacc)`` as :func:`block_update_backward_reference`
-    does. A cotangent that is not contiguous is copied first (counted in
-    ``block_update_backward_copies``). The outputs and the ``[N, H, Tq,
-    3]`` float32 row scratch are allocated here; the kernel allocates
-    nothing."""
+    does. A cotangent that is not contiguous, or a ``g_acc`` whose data
+    does not start on 16 bytes, is copied first (counted in
+    ``block_update_backward_copies``); so are q, k and v, uncounted. The
+    outputs and the ``[N, H, Tq, 3]`` float32 row scratch are allocated
+    here; the kernel allocates nothing."""
     global block_update_backward_launches, block_update_backward_copies
     if not q4.is_cuda:
         raise ValueError("the block-update backward kernel needs CUDA "
@@ -699,13 +703,16 @@ def _block_update_bwd_cuda(grads, q4, k4, v4, keep3, m, denom, acc,
             raise ValueError(
                 f"{name} {tuple(g.shape)} {g.dtype} on {g.device} does not "
                 f"match {tuple(ref.shape)} float32 on {ref.device}")
-        if not g.is_contiguous():
-            g = g.contiguous()
+        if not g.is_contiguous() or (name == "g_acc" and g.data_ptr() % 16):
+            g = g.clone(memory_format=torch.contiguous_format)
             with _count_lock:
                 block_update_backward_copies += 1
         gs.append(g)
     q4, k4, v4, m, denom, acc = (t.contiguous() for t in
                                  (q4, k4, v4, m, denom, acc))
+    # the kernel stages q, k, v and gA by 16-byte copies
+    q4, k4, v4 = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (q4, k4, v4))
     keep = keep3 if keep3.dtype == torch.int8 else keep3.to(torch.bool).to(
         torch.int8)
     keep = keep.contiguous()

@@ -418,3 +418,125 @@ def test_cuda_backward_kernel_matches_closed_form():
             assert bool((diff <= bnd[fin]).all()), (
                 name, tuple(args[0].shape),
                 float((diff / bnd[fin].clamp_min(1e-300)).max()))
+
+
+# The backward kernel's arithmetic: every product in 3xTF32 (each float32
+# operand split into a TF32 high part and the TF32 rounding of the rest,
+# lo.hi + hi.lo + hi.hi summed in float32), emulated here in plain PyTorch
+# and held to the same bound as the kernel on the card.
+_SCHEME_CASES = [
+    ("holes", "init", (2, 2, 16, 16, 8)),
+    ("holes", "hop", (2, 2, 37, 29, 16)),
+    ("causal", "init", (1, 2, 24, 24, 16)),
+    ("causal", "hop", (1, 2, 24, 24, 16)),
+    ("none", "init", (1, 2, 8, 8, 8)),
+    ("none", "hop", (2, 2, 16, 16, 8)),
+    ("all", "init", (2, 1, 8, 33, 8)),
+    ("all", "hop", (2, 1, 8, 33, 8)),
+    ("duplicated_keys", None, None),
+    ("m_at_row_max", None, None),
+]
+
+
+def _tf32(x):
+    """``x`` rounded to TF32 (10 stored significand bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: on the int32 bits,
+    add half of the 13 dropped bits' unit to the magnitude and clear
+    them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)
+            + torch.matmul(a_hi, b_hi))
+
+
+def _matmul_1xtf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _scheme_inputs(case):
+    kind, carry, shape = case
+    if carry is None:
+        args, scale = _tie_inputs(kind, seed=61)
+        shape = args[0].shape
+    else:
+        n, h, tq, tk, d = shape
+        args = _inputs(n, h, tq, tk, d, kind, carry, seed=tq + tk + 60)
+        scale = ta.resolve_scale(None, d)
+    q = args[0]
+    grads = tuple(_torch(_cotangents(*q.shape[:3], q.shape[3], seed=62)))
+    return _torch(args), grads, scale, carry is None
+
+
+def _over_bound(matmul, case):
+    """The closed form with ``matmul`` for its five products against the
+    float32 closed form: the largest ratio of each gradient's difference
+    to ``block_update_backward_error_bound`` at ``REL`` (the integer tie
+    cases with no allowance for a tie seen differently), after checking
+    that both are finite at the same places."""
+    ts, grads, scale, exact = _scheme_inputs(case)
+    want = ta.block_update_backward_reference(grads, *ts, scale)
+    got = ta.block_update_backward_reference(grads, *ts, scale,
+                                             matmul=matmul)
+    bounds = ta.block_update_backward_error_bound(grads, *ts, scale, REL,
+                                                  exact=exact)
+    ratios = {}
+    for name, g, w, bnd in zip(NAMES, got, want, bounds):
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g), fin), name
+        diff = (g[fin].double() - w[fin].double()).abs()
+        ratios[name] = float((diff / bnd[fin].clamp_min(1e-300)).max()) \
+            if diff.numel() else 0.0
+    return ratios
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """``_tf32`` keeps 10 stored significand bits, rounds to nearest and
+    breaks a tie away from zero, for either sign; small integers are
+    exact, so the kernel's integer scores stay exact."""
+    one = 1.0
+    ulp = 2.0 ** -10                  # TF32's unit in the last place at 1
+    x = torch.tensor([one + ulp / 2, one + ulp / 2 - 2.0 ** -23,
+                      one + 3 * ulp / 2, -(one + ulp / 2), 3.0, -17.0,
+                      0.0, 2.0 ** -20 * 3], dtype=torch.float32)
+    want = [one + ulp, one, one + 2 * ulp, -(one + ulp), 3.0, -17.0, 0.0,
+            2.0 ** -20 * 3]
+    assert _tf32(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(63).normal(size=4096)
+                         .astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32(y - hi)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    rel = ((y.double() - hi.double() - lo.double()).abs()
+           / y.double().abs()).max()
+    assert float(rel) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("case", _SCHEME_CASES,
+                         ids=["-".join(map(str, c[:2])) for c in
+                              _SCHEME_CASES])
+def test_3xtf32_closed_form_lies_within_the_error_bound(case):
+    """The closed form with its five products (s, dp, dq, dk, dv) in
+    3xTF32 lies within ``block_update_backward_error_bound`` at ``REL``
+    of the float32 closed form on the file's cases: keep holes, causal,
+    pad only and every key, on the initial and a hop carry; the two
+    integer tie cases with ``exact=True`` (their scores are exact in the
+    TF32 high part, so the ties are the same)."""
+    ratios = _over_bound(_matmul_3xtf32, case)
+    assert max(ratios.values()) <= 1, ratios
+
+
+@pytest.mark.parametrize("case", [c for c in _SCHEME_CASES
+                                  if c[0] != "none"],
+                         ids=["-".join(map(str, c[:2])) for c in
+                              _SCHEME_CASES if c[0] != "none"])
+def test_1xtf32_closed_form_falls_outside_the_error_bound(case):
+    """One TF32 product per float32 product (about 2^-11 of each term)
+    lies outside the bound on every case that keeps a key: the bound
+    catches a scheme that is too coarse for float32 gradients."""
+    ratios = _over_bound(_matmul_1xtf32, case)
+    assert max(ratios.values()) > 1, ratios

@@ -12,7 +12,8 @@ Phases, each printing JSON lines:
    together) with the registers and spills ``ptxas`` reports and the
    count of tensor-core instructions (``HMMA``/``HGMMA``, from
    ``cuobjdump -sass``) in each kernel function; the bf16 flash-attention
-   kernel and both of K3's backward kernels must have some;
+   kernel, K3's forward kernel and both of K3's backward kernels must have
+   some, and K3's forward kernel must not spill;
 2. **attention** — the flash-attention kernel against its plain PyTorch
    version on the card, at the shapes the serving path gives it (ViT-B/16
    attention: B in {1, 8, 32}, H=12, T=196, D=64, bf16 and f32, on the
@@ -282,7 +283,14 @@ GEN_LOGIT_TOL = 1e-4
 # same operands. The kernel merges 64-key stripes one after another where
 # the plain version takes the whole block in one softmax, and sums the dot
 # products in another order: m and acc/denom differ by float32 rounding,
-# some 10 steps of values of order 1; 1e-5 is about 100 such steps
+# some 10 steps of values of order 1; 1e-5 is about 100 such steps. The
+# kernel runs both products on the tensor cores in 3xTF32 (as K3's
+# backward, below), which adds about 6 float32 epsilons of each product:
+# on the CPU the plain update with its products so emulated lies 1.2e-6 to
+# 1.7e-6 from the JAX package's at a small ring's hops, and with one TF32
+# product each about 1.4e-3 (tests/test_torch_block_update.py). Small
+# integers are exact in the TF32 high part, so with integer q and k the
+# kernel's m must equal the plain version's exactly
 BLOCK_TOL = 1e-5
 # K3's backward kernel vs its plain version (the closed form), float32 from
 # the same operands: the kernel sums the products over D, the keys and the
@@ -314,9 +322,9 @@ BLOCK_BWD_REL = 64 * 2.0 ** -23
 # float32 operations per kept (query, key) pair and head column of the
 # backward: five products (s, dp, dq, dk, dv), two operations each
 BLOCK_BWD_OPS_PER_PAIR = 10
-# TF32 tensor-core products per float32 product of the backward kernel
-# (3xTF32: lo.hi, hi.lo, hi.hi)
-BLOCK_BWD_TF32_PRODUCTS = 3
+# TF32 tensor-core products per float32 product of K3's forward and
+# backward kernels (3xTF32: lo.hi, hi.lo, hi.hi)
+BLOCK_TF32_PRODUCTS = 3
 # the backward's two kernels in a profiler trace, one each a call
 BLOCK_BWD_KERNEL_NAMES = ("bu_bwd_dq", "bu_bwd_dkdv")
 # sequence-parallel training: the generation path's model (GPT-2 small's
@@ -523,13 +531,16 @@ def phase_device() -> dict:
     check(len(bf16) > 0 and all(sum(c.values()) > 0 for c in bf16.values()),
           f"the bf16 flash-attention kernel has no tensor-core "
           f"instructions: {bf16}")
-    for name in BLOCK_BWD_KERNEL_NAMES:
-        fns = {fn: c for fn, c in tensor_ops["block_update_bwd"].items()
-               if name in fn}
+    for lib, name in (("block_update", "block_update_kernel"),
+                      *(("block_update_bwd", n)
+                        for n in BLOCK_BWD_KERNEL_NAMES)):
+        fns = {fn: c for fn, c in tensor_ops[lib].items() if name in fn}
         check(len(fns) > 0 and all(sum(c.values()) > 0
                                    for c in fns.values()),
-              f"K3's backward kernel {name} has no tensor-core "
-              f"instructions: {fns}")
+              f"K3's kernel {name} has no tensor-core instructions: {fns}")
+    spills = [ln for ln in ptxas["block_update"] if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(not spills, f"K3's forward kernel spills: {spills}")
     return out
 
 
@@ -1785,24 +1796,29 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
           f"{TRAIN_BF16_RATIO_TOL}x")
     return launches
 
-def block_update_bound(n, h, tq, tk, d, keep=None) -> tuple[float, str]:
+def block_update_bound(n, h, tq, tk, d, keep=None,
+                       tensor_cores: bool = False) -> tuple[float, str]:
     """The block update on these operands: q, k and v read once, the carry
     (m, denom [N,H,Tq,1] and acc [N,H,Tq,D], f32) read and written once,
     the int8 mask read once, 4·N·H·Tq·Tk·D float32 operations. With
     ``keep`` (the ``[N, Tq, Tk]`` mask of this run) only the work the
     function needs is counted: 4·H·D operations per kept (query, key) pair,
     the q rows that keep some key and the K/V rows of the keys that some
-    query keeps."""
+    query keeps. With ``tensor_cores`` the floor on the units the kernel
+    uses: each float32 operation as BLOCK_TF32_PRODUCTS TF32 operations at
+    the TF32 peak."""
     fixed = n * tq * tk + 2 * 4 * n * h * tq * (d + 2)
+    per_op, dtype = ((BLOCK_TF32_PRODUCTS, "tf32") if tensor_cores
+                     else (1, "float32"))
     if keep is None:
         return bound(fixed + 4 * n * h * (tq + 2 * tk) * d,
-                     4 * n * h * tq * tk * d, "float32")
+                     per_op * 4 * n * h * tq * tk * d, dtype)
     kept = keep != 0
     pairs = int(kept.sum())
     q_rows = int(kept.any(dim=2).sum())
     kv_rows = int(kept.any(dim=1).sum())
     return bound(fixed + 4 * h * d * (q_rows + 2 * kv_rows),
-                 4 * h * d * pairs, "float32")
+                 per_op * 4 * h * d * pairs, dtype)
 
 
 def block_update_backward_bound(n, h, tq, tk, d, keep=None,
@@ -1817,11 +1833,11 @@ def block_update_backward_bound(n, h, tq, tk, d, keep=None,
     that keep some key and the K/V rows of the keys that some query keeps
     (every output is written all the same). With ``tensor_cores`` the
     floor on the units the kernel uses: each float32 operation as
-    BLOCK_BWD_TF32_PRODUCTS TF32 operations at the TF32 peak."""
+    BLOCK_TF32_PRODUCTS TF32 operations at the TF32 peak."""
     carry = n * h * tq * (d + 2)
     outputs = n * h * (tq + 2 * tk) * d
     fixed = n * tq * tk + 4 * (3 * carry + outputs)
-    per_op, dtype = ((BLOCK_BWD_TF32_PRODUCTS, "tf32") if tensor_cores
+    per_op, dtype = ((BLOCK_TF32_PRODUCTS, "tf32") if tensor_cores
                      else (1, "float32"))
     if keep is None:
         return bound(fixed + 4 * outputs,
@@ -1899,12 +1915,17 @@ def _ring_hops(kv_mask) -> list[tuple]:
 
 
 def _block_case(args, scale, name) -> tuple[dict, tuple]:
-    """K3 against its plain version on one input; both outputs checked."""
+    """K3 against its plain version on one input; both outputs checked, and
+    a second launch equal to the first bit for bit."""
     import torch
 
     from mmlspark_tpu_torch.ops import attention as fa
     got = fa.attention_block_update(*args, scale, impl="cuda")
+    again = fa._block_update_cuda(*args, scale)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                 for a, b in zip(got, again))
+    check(repeat, f"two launches of K3 on the same input differ: {name}")
     want = fa.attention_block_update(*args, scale, impl="torch")
     for g, w in zip(got, want):
         check(g.shape == w.shape and g.dtype == torch.float32,
@@ -1923,7 +1944,8 @@ def _block_case(args, scale, name) -> tuple[dict, tuple]:
     row = {"phase": "kernel", "kernel": "attention_block_update",
            "case": name, "N": n, "H": h, "Tq": tq, "Tk": args[1].shape[2],
            "D": d, "kept_fraction": float((args[3] != 0).float().mean()),
-           "max_abs_err_m": err_m, "max_abs_err": err, "tol": BLOCK_TOL}
+           "max_abs_err_m": err_m, "max_abs_err": err, "tol": BLOCK_TOL,
+           "bitwise_repeat": repeat}
     check(err <= BLOCK_TOL,
           f"attention_block_update kernel differs from its plain version "
           f"by {err} > {BLOCK_TOL} on {row}")
@@ -2054,7 +2076,10 @@ def phase_block_update() -> dict:
     """K3 against its plain version at every hop of a ring over the
     training geometry (N = sp·B = 32, H=12, Tq = Tk = 256, D=64, f32, the
     first training batch's pad mask, causal), on a block with every key
-    kept, and at the edge cases; times and bounds per hop. The same for
+    kept, at the edge cases (operands off 16 bytes among them) and on
+    integer scores (m exact), every case launched twice and equal bit for
+    bit; times per hop and bounds on the CUDA cores (the function's f32
+    work) and on the tensor cores in 3xTF32 (the units the kernel uses). The same for
     K3's backward kernel against its closed form, at every hop with the
     ring's own cotangents and with seeded random ones, and at the edge
     cases and two integer tie cases; its time per hop beside the closed
@@ -2082,6 +2107,8 @@ def phase_block_update() -> dict:
             q, k, v, keep, m, den, acc, scale))
         row["bound_ms"], row["bound_by"] = block_update_bound(
             *q.shape[:3], k.shape[2], q.shape[3], keep)
+        row["tc_bound_ms"], row["tc_bound_by"] = block_update_bound(
+            *q.shape[:3], k.shape[2], q.shape[3], keep, tensor_cores=True)
         row["bound_kernel_tiles_ms"] = block_update_bound(
             *q.shape[:3], k.shape[2], q.shape[3], kernel_tile_keep(keep))[0]
         row["bound_all_keys_ms"] = block_update_bound(
@@ -2093,6 +2120,8 @@ def phase_block_update() -> dict:
             lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=sdpa_mask, scale=scale))
         row["x_bound"] = row["ms"] / row["bound_ms"]
+        row["x_tc_bound"] = row["ms"] / row["tc_bound_ms"]
+        row["x_sdpa"] = row["ms"] / row["sdpa_ms_no_carry"]
         worst = max(worst, row["max_abs_err"])
         timed.append(row)
         emit(row)
@@ -2108,9 +2137,13 @@ def phase_block_update() -> dict:
         q, k, v, ones, m, den, acc, scale))
     row["bound_ms"], row["bound_by"] = block_update_bound(
         *q.shape[:3], k.shape[2], q.shape[3])
+    row["tc_bound_ms"], row["tc_bound_by"] = block_update_bound(
+        *q.shape[:3], k.shape[2], q.shape[3], tensor_cores=True)
     row["sdpa_ms_no_carry"] = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
     row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["x_tc_bound"] = row["ms"] / row["tc_bound_ms"]
+    row["x_sdpa"] = row["ms"] / row["sdpa_ms_no_carry"]
     worst = max(worst, row["max_abs_err"])
     dense = row
     emit(row)
@@ -2127,6 +2160,13 @@ def phase_block_update() -> dict:
     check(all(torch.equal(g, a) for g, a in zip(got, (m, den, acc))),
           "a pad-only block changed the carry")
     row["carry_unchanged_bit_for_bit"] = True
+    # the kernel's cost with no product to take: the carry in and out
+    row["ms"] = time_ms(lambda: fa._block_update_cuda(
+        q, k, v, zeros, m, den, acc, scale))
+    row["bound_ms"], row["bound_by"] = block_update_bound(
+        *q.shape[:3], k.shape[2], q.shape[3], zeros)
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    pad_only = row
     emit(row)
     bwd_rows.append(_block_bwd_case(
         (q, k, v, zeros, m, den, acc), _random_cotangents(hops[1], gen_b),
@@ -2183,15 +2223,34 @@ def phase_block_update() -> dict:
             args, _random_cotangents(args, gen_b),
             fa.resolve_scale(None, shape[-1]), name))
         del args
+    # q, k and v off 16 bytes (the kernel stages them by 4-byte copies),
+    # ragged tiles and a mask row of 77 bytes (byte loads of the mask)
+    args = list(inputs(2, 3, 70, 77, 64, holes))
+    for i in range(3):
+        off = torch.empty(args[i].numel() + 1, device=DEV)[1:]
+        args[i] = off.view(args[i].shape).copy_(args[i])
+    row, _ = _block_case(tuple(args), fa.resolve_scale(None, 64),
+                         "q, k, v off 16 bytes, ragged 70x77")
+    worst = max(worst, row["max_abs_err"])
+    emit(row)
+    del args
     for kind in ("duplicated_keys", "m_at_row_max"):
         args, sc = _integer_tie_inputs(kind, gen_b)
+        if kind == "duplicated_keys":
+            # integer scores are exact in the TF32 high part: m exactly
+            row, _ = _block_case(args, sc, f"{kind}, integer scores")
+            emit(row)
+            check(row["max_abs_err_m"] == 0,
+                  f"K3's m differs from the plain version's on integer "
+                  f"scores by {row['max_abs_err_m']}")
+            worst = max(worst, row["max_abs_err"])
         bwd_rows.append(_block_bwd_case(
             args, _random_cotangents(args, gen_b), sc,
             f"{kind}, integer scores", exact=True))
         del args
 
     total = {key: sum(r[key] for r in timed)
-             for key in ("ms", "plain_ms", "bound_ms",
+             for key in ("ms", "plain_ms", "bound_ms", "tc_bound_ms",
                          "bound_kernel_tiles_ms", "bound_all_keys_ms",
                          "sdpa_ms_no_carry")}
     hops_n = len(timed)
@@ -2199,9 +2258,15 @@ def phase_block_update() -> dict:
            "per_ring": f"sum over the {hops_n} hops of one layer's ring, "
                        "first training batch", **total,
            "x_bound": total["ms"] / total["bound_ms"],
+           "x_tc_bound": total["ms"] / total["tc_bound_ms"],
+           "x_sdpa": total["ms"] / total["sdpa_ms_no_carry"],
+           "by_hop_ms": [r["ms"] for r in timed],
            "every_key_kept": {k: dense[k] for k in (
-               "ms", "plain_ms", "bound_ms", "bound_by", "x_bound",
-               "sdpa_ms_no_carry")},
+               "ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms",
+               "tc_bound_by", "x_bound", "x_tc_bound", "sdpa_ms_no_carry",
+               "x_sdpa")},
+           "pad_only": {k: pad_only[k] for k in ("ms", "bound_ms",
+                                                 "x_bound")},
            "max_abs_err": worst}
     emit(out)
     # per launch: the mean over the ring's hops; bound_by is the limit that
@@ -2211,6 +2276,7 @@ def phase_block_update() -> dict:
     bwd = _block_update_backward_hops(hops, scale, gen_b, bwd_rows)
     return {"ms": total["ms"] / hops_n, "plain_ms": total["plain_ms"] / hops_n,
             "bound_ms": total["bound_ms"] / hops_n,
+            "tc_bound_ms": total["tc_bound_ms"] / hops_n,
             "bound_by": max(by_share, key=by_share.get),
             "max_abs_err": worst, "backward": bwd}
 
@@ -2735,7 +2801,7 @@ def main() -> int:
                 "max_abs_err": bu["max_abs_err"],
                 "ms": bu["ms"], "plain_ms": bu["plain_ms"],
                 "bound_ms": bu["bound_ms"], "bound_by": bu["bound_by"],
-                "library_ms": None})
+                "tc_bound_ms": bu["tc_bound_ms"], "library_ms": None})
             bwd = bu["backward"]
             # the JAX package differentiates _online_update with jax.vjp
             # through XLA; the kernel is that vjp in closed form. plain_ms

@@ -103,15 +103,17 @@ block_update_backward_copies = 0
 _count_lock = threading.Lock()
 
 
-def _online_update(q, ks, vs, keep, m, denom, acc, scale):
+def _online_update(q, ks, vs, keep, m, denom, acc, scale,
+                   matmul=torch.matmul):
     """One key block's update of the online softmax, batched: ``q``
     ``[..., Tq, D]`` f32, ``ks``/``vs`` ``[..., bk, D]`` f32, ``keep``
     ``[..., Tq, bk]`` bool, carry ``m``/``denom`` ``[..., Tq, 1]`` and
-    ``acc`` ``[..., Tq, D]`` f32."""
+    ``acc`` ``[..., Tq, D]`` f32. ``matmul`` takes the two products (the
+    scores and p·v)."""
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32,
                            device=q.device)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
-    scores = torch.matmul(q, ks.transpose(-1, -2)) * scale
+    scores = matmul(q, ks.transpose(-1, -2)) * scale
     scores = torch.where(keep, scores, neg_inf)
     blk_max = scores.amax(dim=-1, keepdim=True)
     m_new = torch.maximum(m, blk_max)
@@ -119,7 +121,7 @@ def _online_update(q, ks, vs, keep, m, denom, acc, scale):
     corr = torch.where(torch.isfinite(m), torch.exp(m - m_new), zero)
     p = torch.exp(torch.where(torch.isfinite(scores), scores - m_new,
                               neg_inf))
-    acc = acc * corr + torch.matmul(p, vs)
+    acc = acc * corr + matmul(p, vs)
     denom = denom * corr + p.sum(dim=-1, keepdim=True)
     return m_new, denom, acc
 
@@ -446,12 +448,15 @@ def decode_attention(q, k, v, kv_mask=None, scale=None, impl: str = "auto",
 # ---- the ring-hop block update (one online update over a whole block) ----
 
 
-def block_update_reference(q4, k4, v4, keep3, m, denom, acc, scale):
+def block_update_reference(q4, k4, v4, keep3, m, denom, acc, scale,
+                           matmul=torch.matmul):
     """Plain PyTorch block update: one :func:`_online_update` over the
     whole key block, batched over (N, H). ``keep3`` ``[N, Tq, Tk]``
-    (nonzero = attend). Returns the fresh ``(m, denom, acc)``."""
+    (nonzero = attend). Returns the fresh ``(m, denom, acc)``. ``matmul``
+    takes the two products, so that another arithmetic for them, as the
+    kernel's, can be held to the plain version on the CPU."""
     return _online_update(q4, k4, v4, (keep3 != 0)[:, None], m, denom, acc,
-                          scale)
+                          scale, matmul)
 
 
 def _check_block_operands(q4, k4, v4, keep3, m, denom, acc) -> None:

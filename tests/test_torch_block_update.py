@@ -272,3 +272,139 @@ def test_cuda_kernel_matches_plain_version():
         grads.append([t.grad for t in ts])
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
+
+
+# The kernel's arithmetic: both products (the scores and p·v) in 3xTF32
+# (each float32 operand split into a TF32 high part and the TF32 rounding
+# of the rest, lo.hi + hi.lo + hi.hi summed in float32), emulated here in
+# plain PyTorch through the plain version's ``matmul`` keyword. The helpers
+# are the backward's (tests/ is on sys.path: it has no __init__.py).
+from test_torch_block_update_backward import (  # noqa: E402
+    _matmul_1xtf32, _matmul_3xtf32,
+)
+
+# the kernel against its plain version on the card (chip_smoke.py)
+BLOCK_TOL = 1e-5
+
+
+def _ring_hop_inputs(seed, b=2, length=256, h=2, d=32, sp=4):
+    """The inputs the block update gets at every hop of one causal ring
+    over ``sp`` ranks: numpy-seeded random normal q, k, v ``[B, L, H, D]``,
+    each row's real length drawn in [L/2, L] and the rest pad, through
+    the port's ``ring_attention`` (plain update), each hop's ``(q, k, v,
+    keep, m, denom, acc)`` recorded with the carry of the real previous
+    hop, as numpy arrays."""
+    from mmlspark_tpu_torch.parallel import ring_attention as ring
+    from mmlspark_tpu_torch.parallel.mesh import make_mesh
+    r = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(r.normal(size=(b, length, h, d))
+                                .astype(np.float32)) for _ in range(3))
+    lengths = r.integers(length // 2, length + 1, b)
+    kv_mask = torch.from_numpy(np.arange(length)[None] < lengths[:, None])
+    hops = []
+    inner = ring.attention_block_update
+
+    def record(*args, impl="auto"):
+        hops.append([a.numpy().copy() for a in args[:7]])
+        return inner(*args, impl="torch")
+
+    ring.attention_block_update = record
+    try:
+        ring.ring_attention(q, k, v, make_mesh({"sp": sp}, "cpu"),
+                            causal=True, kv_mask=kv_mask)
+    finally:
+        ring.attention_block_update = inner
+    assert len(hops) == sp
+    return hops
+
+
+def _update_err(got, want):
+    """The check chip_smoke.py applies to the kernel: the largest gap in
+    m (where finite, the -inf rows the same) and in acc / denom."""
+    gm, wm = got[0], want[0]
+    assert (np.isneginf(gm) == np.isneginf(wm)).all()
+    fin = np.isfinite(wm)
+    err_m = float(np.abs(gm[fin] - wm[fin]).max()) if fin.any() else 0.0
+    out_g = got[2] / np.maximum(got[1], 1e-30)
+    out_w = want[2] / np.maximum(want[1], 1e-30)
+    return max(err_m, float(np.abs(out_g - out_w).max()))
+
+
+def test_3xtf32_update_lies_within_block_tol_of_jax_on_ring_hops():
+    """The plain update with both products in 3xTF32 lies within
+    ``BLOCK_TOL`` of JAX ``attention_block_update(impl="xla")`` at every
+    hop of a causal ring (sp=4, pad mask, 256 positions, H=2, D=32), and
+    with one TF32 product each at least 10 times farther away (and past
+    ``BLOCK_TOL``): the split is required and it is enough. Measured on the
+    CPU, by hop: 3xTF32 1.2e-6, 1.4e-6, 1.7e-6, 1.4e-6 (the float32 plain
+    version 3.6e-7, 4.8e-7, 2.4e-7, 1.3e-7), a margin of about 6 to
+    ``BLOCK_TOL``; one TF32 product 1.3e-3, 1.3e-3, 1.4e-3, 1.0e-3, about
+    830 times the 3xTF32 worst."""
+    worst3 = worst1 = 0.0
+    for hop in _ring_hop_inputs(seed=71):
+        scale = ta.resolve_scale(None, hop[0].shape[-1])
+        want = _jax_update(*hop, np.float32(scale), "xla")
+        args = [torch.from_numpy(a) for a in hop]
+        err3, err1 = (_update_err(
+            [o.numpy() for o in ta.block_update_reference(
+                *args, scale, matmul=mm)], want)
+            for mm in (_matmul_3xtf32, _matmul_1xtf32))
+        assert err3 <= BLOCK_TOL, err3
+        worst3, worst1 = max(worst3, err3), max(worst1, err1)
+    assert worst1 > BLOCK_TOL and worst1 >= 10 * worst3, (worst1, worst3)
+
+
+def test_3xtf32_update_keeps_integer_scores_exact():
+    """Small integers are exact in the TF32 high part (the low part is 0),
+    so with integer-valued q and k every score, and so m, of the update
+    with 3xTF32 products equals the float32 plain version's bit for bit."""
+    q, k, v, keep, m, den, acc = _inputs(2, 3, 40, 72, 16, "holes", "hop",
+                                         seed=73)
+    r = np.random.default_rng(74)
+    q, k = (r.integers(-2, 3, size=a.shape).astype(np.float32)
+            for a in (q, k))
+    args = [torch.from_numpy(a) for a in (q, k, v, keep, m, den, acc)]
+    scale = ta.resolve_scale(None, 16)
+    got = ta.block_update_reference(*args, scale, matmul=_matmul_3xtf32)
+    want = ta.block_update_reference(*args, scale)
+    assert torch.isfinite(want[0]).any()
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[2] / torch.clamp(got[1], min=1e-30),
+                               want[2] / torch.clamp(want[1], min=1e-30),
+                               rtol=0, atol=BLOCK_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_keeps_integer_m_exact_and_repeats_bit_for_bit():
+    """The tensor-core kernel on integer-valued q and k: m equal to the
+    plain version's bit for bit (integers are exact in the TF32 high part),
+    acc / denom within ``BLOCK_TOL``, two launches equal bit for bit, also
+    with q, k and v off 16 bytes (4-byte staging) and a mask row of 77
+    bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    r = np.random.default_rng(75)
+    for shape, misalign in (((8, 12, 256, 256, 64), False),
+                            ((2, 3, 70, 77, 64), True)):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in _inputs(*shape, "holes", "hop", seed=76)]
+        for i in range(2):
+            args[i] = torch.from_numpy(r.integers(
+                -2, 3, size=tuple(args[i].shape)).astype(np.float32)).to(dev)
+        if misalign:
+            for i in range(3):
+                off = torch.empty(args[i].numel() + 1, device=dev)[1:]
+                args[i] = off.view(args[i].shape).copy_(args[i])
+        scale = ta.resolve_scale(None, shape[-1])
+        got = ta._block_update_cuda(*args, scale)
+        again = ta._block_update_cuda(*args, scale)
+        want = ta.attention_block_update(*args, scale, impl="torch")
+        torch.cuda.synchronize()
+        for a, b in zip(got, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(
+            got[2] / torch.clamp(got[1], min=1e-30),
+            want[2] / torch.clamp(want[1], min=1e-30), rtol=0,
+            atol=BLOCK_TOL)

@@ -46,15 +46,17 @@ Phases, each printing JSON lines:
    an f32 sample past the largest cluster, a group of zeros with bias 0
    on the ReLU's tie); every case launched twice and equal bit for bit
    (the backward once with ``dy`` strided, which its wrapper copies),
-   with the body the forward took (the cluster body with its plan and
-   the clusters the card holds at once, or the tiled body); every bf16
-   site of ResNet-50 must take the cluster body; per shape in bf16 the
-   forward's time with L2 warm and flushed, the plain version's,
-   ``F.group_norm``'s and the bound, the backward's with L2 warm and
-   flushed, its plain closed form's, the autograd route's,
-   ``F.group_norm``'s backward and its bound, and their sums over the 53
-   sites of one forward; and, for scale, one launch's time by the same
-   timing (a one-element fill);
+   with the body each direction took (the forward's cluster body with its
+   plan and the clusters the card holds at once, or its tiled body; the
+   backward's cluster body with its plan, k, clusters and CTAs an SM, or
+   its five-launch body); every bf16 site of ResNet-50 must take the
+   cluster body both ways, and an f32 sample whose x and dy pass 16 × 227
+   KB the backward's five-launch body; per shape in bf16 the forward's
+   time with L2 warm and flushed, the plain version's, ``F.group_norm``'s
+   and the bound, the backward's with L2 warm and flushed, its plain
+   closed form's, the autograd route's, ``F.group_norm``'s backward and
+   its bound, and their sums over the 53 sites of one forward; and, for
+   scale, one launch's time by the same timing (a one-element fill);
 6. **resize** — the fused crop → resize → scale kernel against its plain
    version at the training geometry (N=64, 256² source, 240² window,
    224² out, C=3, offsets at 0, at the maximum and out of range) and at
@@ -79,7 +81,8 @@ Phases, each printing JSON lines:
    (device busy and idle time, wall time and images/s, the kernels' and
    the GroupNorm backward's share; the traced step must hold exactly 53
    GroupNorm forward kernels, one a site, 53 calls of the backward
-   kernel with each of its five kernels 53 times, and no call of a plain
+   kernel, each on its cluster body (each of its two kernels 53 times,
+   the five-launch body's kernels not at all), and no call of a plain
    GroupNorm route);
 9. **block_update** — the ring-hop block-update kernel against its plain
    version at every hop of a ring over the sequence-parallel training
@@ -212,9 +215,12 @@ GN_BWD_REL_OFFSET = GN_TOL_OFFSET
 # centred square: 4), x̂ (2), the ReLU's y and its mask (2), the sums of gy
 # and gy·x̂ (3), dx (4)
 GN_BWD_OPS_PER_ELEMENT = 15
-# the backward's five kernels in a profiler trace, one each a call
+# the backward's five-launch body's kernels in a profiler trace, one each
+# a call
 GN_BWD_KERNEL_NAMES = ("gn_bwd_stats", "gn_merge", "gn_bwd_reduce",
                        "gn_bwd_merge", "gn_bwd_apply")
+# the backward's cluster body's two kernels, one each a call
+GN_BWD_CLUSTER_KERNEL_NAMES = ("gn_bwd_cluster", "gn_bwd_fold")
 
 # the resize kernel runs the plain version's float32 operations in the
 # same order, each rounded on its own (no FMA): equal bit for bit
@@ -745,12 +751,35 @@ def _gn_case(shape, groups, relu, dtype, gen, center=0.0, spread=1.0,
     return row, ok, (x, scale, bias)
 
 
+def _gn_bwd_body(x, dy, groups) -> dict:
+    """The body the GroupNorm backward takes for ``x`` and ``dy``: the
+    cluster plan, how many such clusters the card holds at once and the
+    CTAs that makes an SM (the mean over the SMs), or the five-launch
+    body."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    n, h, w, c = x.shape
+    with torch.cuda.device(x.device):
+        cp = gn._device_backward_cluster_plan(
+            n, h * w, c, x.dtype, groups, gn._pointer_align(x, dy),
+            x.device.index)
+    if cp is None:
+        return {"body": "five_launch"}
+    resident = gn.backward_cluster_occupancy(x.dtype, cp)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return {"body": "cluster", "plan": cp, "k": cp["k"],
+            "clusters_resident": resident,
+            "ctas_per_sm": resident * cp["k"] / sms}
+
+
 def _gn_bwd_case(x, scale, bias, groups, relu, gen, rel, zero_group=False):
     """The backward kernel on one case's inputs against its plain version
     (the closed form): launched with ``dy`` contiguous and again with
     ``dy`` as a strided view (which the wrapper copies), equal bit for bit;
     each output within ``backward_error_bound`` at ``rel`` (plus one bf16
-    step for a bf16 dx). Returns (row, ok, dy)."""
+    step for a bf16 dx). The row names the body the backward took. Returns
+    (row, ok, dy)."""
     import torch
 
     from mmlspark_tpu_torch.ops import group_norm as gn
@@ -758,16 +787,20 @@ def _gn_bwd_case(x, scale, bias, groups, relu, gen, rel, zero_group=False):
     dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
     # dy as autograd may hand it over: NCHW-contiguous, seen as NHWC
     strided = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    before = (gn.backward_launches, gn.backward_dy_copies)
+    body = _gn_bwd_body(x, dy, groups)
+    before = (gn.backward_launches, gn.backward_dy_copies,
+              gn.backward_cluster_launches)
     got = gn._group_norm_bwd_cuda(dy, x, scale, bias, groups,
                                   gn.DEFAULT_EPS, relu)
     again = gn._group_norm_bwd_cuda(strided, x, scale, bias, groups,
                                     gn.DEFAULT_EPS, relu)
     torch.cuda.synchronize()
-    check((gn.backward_launches, gn.backward_dy_copies)
-          == (before[0] + 2, before[1] + 1),
-          f"backward launches and dy copies {before} -> "
-          f"{(gn.backward_launches, gn.backward_dy_copies)}, expected +2, +1")
+    clustered = 2 if body["body"] == "cluster" else 0
+    after = (gn.backward_launches, gn.backward_dy_copies,
+             gn.backward_cluster_launches)
+    check(after == (before[0] + 2, before[1] + 1, before[2] + clustered),
+          f"backward launches, dy copies and cluster launches {before} -> "
+          f"{after}, expected +2, +1, +{clustered} ({body['body']} body)")
     repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     check(repeat, f"two backward launches on the same input differ: "
                   f"{tuple(x.shape)} {dtype}")
@@ -795,12 +828,24 @@ def _gn_bwd_case(x, scale, bias, groups, relu, gen, rel, zero_group=False):
         ratios[name] = float((diff / bnd.clamp_min(1e-30)).max())
     row = {"phase": "kernel", "kernel": "group_norm_backward",
            "shape": list(x.shape), "groups": groups, "relu": relu,
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), **body,
            "zero_group": zero_group, "bitwise_repeat": repeat,
            "max_abs_err": max(errs.values()), "abs_err": errs,
            "err_over_bound": ratios, "rel": rel,
            "tol": "backward_error_bound(rel) + one bf16 step of a bf16 dx"}
     return row, ok, dy
+
+
+def _gn_bwd_expected_body(shape, dtype) -> str | None:
+    """The backward body a shape must take: the five-launch body for a
+    sample whose x and dy pass 16 × 227 KB; None where either may."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn
+    elt = torch.empty((), dtype=dtype).element_size()
+    if 2 * int(np.prod(shape[1:])) * elt > gn._MAX_CLUSTER * gn._MAX_SMEM:
+        return "five_launch"
+    return None
 
 
 def phase_group_norm() -> dict:
@@ -850,6 +895,12 @@ def phase_group_norm() -> dict:
                 brow, bok, dy = backward_case(x, scale, bias, groups, relu,
                                               1.0)
                 brow["sites"] = entry["sites"]
+                want_body = "cluster" if dtype == torch.bfloat16 else \
+                    _gn_bwd_expected_body((n,) + hwc, dtype)
+                check(want_body in (None, brow["body"]),
+                      f"a ResNet-50 {dtype} site's backward took the "
+                      f"{brow['body']} body, not the {want_body} body: "
+                      f"{brow}")
                 timed = dtype == torch.bfloat16 and (hwc, groups) \
                     not in per_shape
                 if timed:
@@ -938,6 +989,10 @@ def phase_group_norm() -> dict:
                                      zero)
         brow.update(edge=True, center=center, spread=spread,
                     storage_offset=offset)
+        want_body = _gn_bwd_expected_body(shape, dtype)
+        check(want_body in (None, brow["body"]),
+              f"the backward took the {brow['body']} body, not the "
+              f"{want_body} body: {brow}")
         emit(brow)
         check(bok, f"group_norm backward kernel differs from its plain "
                    f"version past tolerance on {brow}")
@@ -973,8 +1028,11 @@ def phase_group_norm() -> dict:
           / total_bwd["bound_ms"],
           "x_library": total_bwd["ms"] / total_bwd["library_ms"],
           "x_autograd": total_bwd["ms"] / total_bwd["autograd_ms"],
-          "cuda_launches_per_forward": len(GN_BWD_KERNEL_NAMES)
-          * GN_SITES_RESNET50,
+          "cuda_launches_per_forward": sum(
+              r["sites"] * len(GN_BWD_CLUSTER_KERNEL_NAMES
+                               if r["body"] == "cluster"
+                               else GN_BWD_KERNEL_NAMES)
+              for r in per_shape_bwd.values()),
           "max_abs_err": worst_bwd, "max_err_over_bound": worst_ratio})
     return {**total, "bound_by": "bytes", "max_abs_err": worst,
             "backward": {**total_bwd, "bound_by": "bytes",
@@ -1545,8 +1603,9 @@ def _step_breakdown(batch) -> dict:
     of the GroupNorm forward kernels, of the GroupNorm backward kernels
     (in all and by kernel) and of the resize kernel, and the busiest
     kernels. The traced step must call the backward kernel's wrapper 53
-    times, launch each of its five kernels 53 times, and call no plain or
-    autograd GroupNorm route."""
+    times, launch each of its cluster body's two kernels 53 times and
+    none of its five-launch body's, and call no plain or autograd
+    GroupNorm route."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1634,15 +1693,16 @@ def _step_breakdown(batch) -> dict:
               if any(k in key for k in GN_KERNEL_NAMES)]
     bwd_kernels = {name: [sum(ms for key, ms, _ in device if name in key),
                           sum(c for key, _, c in device if name in key)]
-                   for name in GN_BWD_KERNEL_NAMES}
+                   for name in GN_BWD_CLUSTER_KERNEL_NAMES
+                   + GN_BWD_KERNEL_NAMES}
     out["profile"] = {
         "device_busy": busy,
         "device_idle_share_of_wall": 1 - busy / out["wall"],
         "wall": out["wall"], "images_per_s": out["images_per_s"],
         "group_norm_forward_kernels": sum(ms for ms, _ in gn_fwd),
         "group_norm_forward_kernel_launches": sum(c for _, c in gn_fwd),
-        # the backward's five kernels by name: the wrapper's host range
-        # gets no device time for kernels launched through ctypes
+        # the backward's kernels (both bodies) by name: the wrapper's host
+        # range gets no device time for kernels launched through ctypes
         "group_norm_backward": sum(ms for ms, _ in bwd_kernels.values()),
         "group_norm_backward_by_kernel": bwd_kernels,
         "plain_group_norm_calls": plain_calls,
@@ -1654,9 +1714,12 @@ def _step_breakdown(batch) -> dict:
           == GN_SITES_RESNET50,
           f"{out['profile']['group_norm_forward_kernel_launches']} GroupNorm "
           "forward kernels in the profiled step, expected one a site (53)")
-    check(all(c == GN_SITES_RESNET50 for _, c in bwd_kernels.values()),
+    check(all(bwd_kernels[name][1] == GN_SITES_RESNET50
+              for name in GN_BWD_CLUSTER_KERNEL_NAMES)
+          and not any(bwd_kernels[name][1] for name in GN_BWD_KERNEL_NAMES),
           f"GroupNorm backward kernels in the profiled step: {bwd_kernels}, "
-          "expected each once a site (53)")
+          "expected each of the cluster body's once a site (53) and none "
+          "of the five-launch body's")
     del trainer, module
     return out
 
@@ -1691,7 +1754,7 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     gn_op.launches = gn_op.backward_launches = 0
-    gn_op.backward_dy_copies = 0
+    gn_op.backward_cluster_launches = gn_op.backward_dy_copies = 0
     rs_op.launches = 0
     t_fit = time.perf_counter()
     trainer.fit_arrays(x, y)
@@ -1699,6 +1762,8 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     fit_s = time.perf_counter() - t_fit
     launches = {"group_norm": gn_op.launches,
                 "group_norm_backward": gn_op.backward_launches,
+                "group_norm_backward_cluster":
+                    gn_op.backward_cluster_launches,
                 "fused_resize_norm": rs_op.launches}
     dy_copies = gn_op.backward_dy_copies
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1710,9 +1775,11 @@ def phase_train(card: str, gn: dict | None, rs: dict | None) -> dict:
     check(launches["group_norm"] == GN_SITES_RESNET50 * steps,
           f"{launches['group_norm']} group_norm launches in {steps} steps, "
           "expected 53 per step")
-    check(launches["group_norm_backward"] == GN_SITES_RESNET50 * steps,
+    check(launches["group_norm_backward"] == GN_SITES_RESNET50 * steps
+          == launches["group_norm_backward_cluster"],
           f"{launches['group_norm_backward']} group_norm backward launches "
-          f"in {steps} steps, expected 53 per step")
+          f"({launches['group_norm_backward_cluster']} of the cluster body) "
+          f"in {steps} steps, expected 53 per step, all of the cluster body")
     check(launches["fused_resize_norm"] == steps,
           f"{launches['fused_resize_norm']} resize launches in {steps} "
           "steps, expected 1 per step")

@@ -79,10 +79,10 @@
 // of the three-launch body) and the stream. Every entry point returns a
 // cudaError_t (0 = launched).
 //
-// The backward (group_norm_bwd, five launches a call) replaces the
-// backward of mmlspark_tpu/ops/group_norm.py:_gn_bwd, a jax.vjp of the
-// reference, in closed form. Per (sample n, group g) of M = H*W*cg values,
-// with the forward's statistics (mean, r = rsqrt(var + eps)):
+// The backward replaces the backward of mmlspark_tpu/ops/group_norm.py:
+// _gn_bwd, a jax.vjp of the reference, in closed form. Per (sample n,
+// group g) of M = H*W*cg values, with the forward's statistics (mean,
+// r = rsqrt(var + eps)):
 //   xhat = (x - mean) * r, y = xhat * scale + bias,
 //   gy = dy * relu'(y) (0.5 at y == 0, as jnp.maximum gives),
 //   A[n,c] = sum_hw gy, B[n,c] = sum_hw gy * xhat,
@@ -90,19 +90,44 @@
 //   dx = r * (gy * scale - c1 - xhat * c2), dbias = sum_n A, dscale = sum_n B.
 // What bounds it on an H100: x and dy read once and dx written once (6
 // bytes an element in bf16), memory at 3.35 TB/s; about 15 f32 operations
-// an element. The design reads x three times and dy twice (about 12 bytes
-// an element), every pass over the same tiles of rows (grid: tiles x
-// samples): gn_bwd_stats takes each tile's moments per group in one pass
-// (sums shifted by a value of the tile, so that a large mean costs no
-// precision) and the tiled body's gn_merge merges them into (mean, rstd);
-// gn_bwd_reduce sums gy and gy*xhat per channel in registers over its
-// rows in row order, then its row threads in order, into float2 partials
-// [N, tiles, C]; gn_bwd_merge (one block a group) folds the tiles in tile
-// order into A and B, forms c1 and c2 per sample in channel order and
-// dscale and dbias in sample order; gn_bwd_apply reads x and dy again and
-// writes dx. Loads and stores move words of 16 bytes where C * elt and
-// the pointers allow (else 8, 4 or 2). No float atomics: two launches on
-// one input give the same bits.
+// an element. Two bodies, chosen by shape in ops/group_norm.py
+// (backward_cluster_plan); both recompute the statistics from x, and
+// neither uses float atomics, so two launches on one input give the same
+// bits:
+//
+// group_norm_bwd_cluster, two launches: gn_bwd_cluster, one thread-block
+//   cluster of k CTAs a sample (k a power of two up to 16, as gn_cluster),
+//   CTA q holding rows [q*R, min((q+1)*R, H*W)) of both x and dy in
+//   shared memory, copied from device memory once with cp.async (x in
+//   four chunks of rows whose first pass overlaps the later copies, then
+//   dy). The statistics are gn_cluster's (cluster_statistics, the same
+//   code and order of sums). Then per channel sum gy and sum gy * xhat:
+//   each thread over its rows in row order, the row threads in order;
+//   per group sum_c scale[c] * those, channels in order, exchanged over
+//   distributed shared memory in rank order into c1 and c2; each channel's
+//   sums over the CTAs in rank order go to f32 scratch part [N, C, 2]; dx
+//   from shared memory, stored in words of the copy's width, and a last
+//   cluster.sync(). The ReLU is a compile-time branch of the sums and dx
+//   loops, both through bwd_element, so both see one mask. gn_bwd_fold
+//   then sums part over the samples in sample order into dscale and dbias
+//   (a second launch, one thread a channel). It reads x and dy once and
+//   writes dx once. Where x and dy of a sample pass 16 * 227 KB (f32 at
+//   112x112x64, 56x56x256 or 112x112x128) there is no plan and the
+//   five-launch body runs.
+//
+// group_norm_bwd, five launches, every pass over the same tiles of rows
+//   (grid: tiles x samples), reading x three times and dy twice (about 12
+//   bytes an element): gn_bwd_stats takes each tile's moments per group
+//   in one pass (sums shifted by a value of the tile, so that a large
+//   mean costs no precision) and the tiled body's gn_merge merges them
+//   into (mean, rstd); gn_bwd_reduce sums gy and gy*xhat per channel in
+//   registers over its rows in row order, then its row threads in order,
+//   into float2 partials [N, tiles, C]; gn_bwd_merge (one block a group)
+//   folds the tiles in tile order into A and B, forms c1 and c2 per
+//   sample in channel order and dscale and dbias in sample order;
+//   gn_bwd_apply reads x and dy again and writes dx. Loads and stores
+//   move words of 16 bytes where C * elt and the pointers allow (else 8,
+//   4 or 2).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -431,8 +456,18 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
     case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
     case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
   }
+}
+
+// words [e0, e1) of src into dst, a word a thread in turn
+template <int B>
+__device__ __forceinline__ void copy_words(typename Word<B>::type* dst,
+                                           const typename Word<B>::type* src,
+                                           int e0, int e1) {
+  for (int e = e0 + (int)threadIdx.x; e < e1; e += (int)blockDim.x)
+    copy_word<B>(dst + e, src + e);
 }
 
 // A thread's VEC per-channel sums folded into the group segments of its
@@ -464,21 +499,19 @@ long cluster_smem(long R, long C, long G, long elt, long vec, long threads,
   return ((R * C * elt + 15) & ~15L) + 20 * G + 8 * rt * (C / seg);
 }
 
-// grid: N * k CTAs in clusters of k along x, one cluster per sample;
-// blockDim.x threads (a multiple of 32, at most 512).
+// Passes 1 and 2 of a cluster body (steps 1-3 above) over the CTA's
+// `rows` rows of x in `slab`, whose kChunks copy groups were committed
+// before `later` more: every CTA of the cluster ends with the same (mean,
+// rstd) per group in gstat. part1 [G] and part2 [G] are read by the other
+// CTAs, buf and buf2 hold [rt][C/seg] floats each. Ends with
+// __syncthreads().
 template <typename T, int B>
-__global__ void __launch_bounds__(kMaxThreads)
-    gn_cluster(const T* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ bias, T* __restrict__ y, int HW,
-               int C, int G, int R, int seg, int relu, float eps) {
+__device__ __forceinline__ void cluster_statistics(
+    cgrp::cluster_group& cluster, const typename Word<B>::type* slab,
+    int rows, int later, int HW, int C, int G, int seg, float eps,
+    float* part1, float2* part2, float2* gstat, float* buf, float* buf2) {
   constexpr int VEC = B / (int)sizeof(T);
-  using W = typename Word<B>::type;
-  cgrp::cluster_group cluster = cgrp::this_cluster();
   const int k = (int)cluster.num_blocks();
-  const int q = (int)cluster.block_rank();
-  const int n = blockIdx.x / k;
-  const int r0 = q * R;
-  const int rows = max(0, min(R, HW - r0));
   const int nthreads = blockDim.x, tid = threadIdx.x;
   const int CV = C / VEC;  // vectors a row
   const int ct = min(CV, nthreads), rt = nthreads / ct;
@@ -490,29 +523,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int spg = cg / seg;    // segments a group
   const float count = (float)HW * (float)cg;
 
-  extern __shared__ __align__(16) unsigned char shm[];
-  W* slab = reinterpret_cast<W*>(shm);
-  const size_t slab_bytes =
-      ((size_t)R * C * sizeof(T) + 15) & ~(size_t)15;
-  float2* part2 = reinterpret_cast<float2*>(shm + slab_bytes);
-  float2* gstat = part2 + G;
-  float* part1 = reinterpret_cast<float*>(gstat + G);
-  float* buf = part1 + G;
-  float* buf2 = buf + rt * NS;
-
-  // the slab, from device memory once, in kChunks groups of rows
-  const size_t base = ((size_t)n * HW + r0) * C;
-  const W* src = reinterpret_cast<const W*>(x + base);
-  for (int j = 0; j < kChunks; ++j) {
-    const int e1 = rows * (j + 1) / kChunks * CV;
-    for (int e = rows * j / kChunks * CV + tid; e < e1; e += nthreads)
-      copy_word<B>(slab + e, src + e);
-    cp_async_commit();
-  }
-
   // pass 1: sums, a chunk as soon as it has landed
   for (int j = 0; j < kChunks; ++j) {
-    cp_async_wait(kChunks - 1 - j);
+    cp_async_wait(kChunks - 1 - j + later);
     __syncthreads();
     if (active) {
       const int c1 = rows * (j + 1) / kChunks;
@@ -602,6 +615,51 @@ __global__ void __launch_bounds__(kMaxThreads)
     gstat[g] = make_float2(gstat[g].x + dm, 1.0f / sqrtf(var + eps));
   }
   __syncthreads();
+}
+
+// grid: N * k CTAs in clusters of k along x, one cluster per sample;
+// blockDim.x threads (a multiple of 32, at most 512).
+template <typename T, int B>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_cluster(const T* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ bias, T* __restrict__ y, int HW,
+               int C, int G, int R, int seg, int relu, float eps) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int n = blockIdx.x / k;
+  const int r0 = q * R;
+  const int rows = max(0, min(R, HW - r0));
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;  // vectors a row
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  const int tx = tid % ct, ty = tid / ct;
+  const bool active = ty < rt;
+  const int cg = C / G;
+  const int NS = C / seg;  // segments a row
+
+  extern __shared__ __align__(16) unsigned char shm[];
+  W* slab = reinterpret_cast<W*>(shm);
+  const size_t slab_bytes =
+      ((size_t)R * C * sizeof(T) + 15) & ~(size_t)15;
+  float2* part2 = reinterpret_cast<float2*>(shm + slab_bytes);
+  float2* gstat = part2 + G;
+  float* part1 = reinterpret_cast<float*>(gstat + G);
+  float* buf = part1 + G;
+  float* buf2 = buf + rt * NS;
+
+  // the slab, from device memory once, in kChunks groups of rows
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* src = reinterpret_cast<const W*>(x + base);
+  for (int j = 0; j < kChunks; ++j) {
+    copy_words<B>(slab, src, rows * j / kChunks * CV,
+                  rows * (j + 1) / kChunks * CV);
+    cp_async_commit();
+  }
+  cluster_statistics<T, B>(cluster, slab, rows, 0, HW, C, G, seg, eps,
+                           part1, part2, gstat, buf, buf2);
 
   // normalise from shared memory; one store a word
   if (active) {
@@ -685,12 +743,13 @@ struct Checked {
 std::mutex checked_mu;
 std::vector<Checked> checked;
 
-// Sets the kernel's shared-memory limit (and the non-portable cluster
-// size above 8) and asks how many clusters of (k, threads, smem) fit on
-// the card at once; *clusters = 0 means none can run.
-template <typename T, int B>
-int cluster_occupancy(int k, int threads, int smem, int* clusters) {
-  const void* fn = reinterpret_cast<const void*>(gn_cluster<T, B>);
+// Sets a cluster kernel's shared-memory limit (and the non-portable
+// cluster size above 8) and asks how many clusters of (k, threads, smem)
+// fit on the card at once; *clusters = 0 means none can run.
+template <typename... A>
+int occupancy(void (*kernel)(A...), int k, int threads, int smem,
+              int* clusters) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return (int)e;
@@ -703,23 +762,28 @@ int cluster_occupancy(int k, int threads, int smem, int* clusters) {
         return 0;
       }
   }
-  e = cudaFuncSetAttribute(gn_cluster<T, B>,
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kMaxSmem);
   if (e != cudaSuccess) return (int)e;
   if (k > 8) {
-    e = cudaFuncSetAttribute(gn_cluster<T, B>,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(&attr, 1, k, threads, smem, 0);
-  e = cudaOccupancyMaxActiveClusters(clusters, gn_cluster<T, B>, &cfg);
+  e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> lock(checked_mu);
   checked.push_back({fn, device, k, threads, smem, *clusters});
   return 0;
+}
+
+template <typename T, int B>
+int cluster_occupancy(int k, int threads, int smem, int* clusters) {
+  return occupancy(gn_cluster<T, B>, k, threads, smem, clusters);
 }
 
 template <typename T, int B>
@@ -1208,5 +1272,333 @@ extern "C" int group_norm_bwd_resident(int dtype, int vec_bytes, int C,
   return with_instance(dtype, vec_bytes, [&](auto inst) {
     using I = decltype(inst);
     return bwd_resident<typename I::type, I::bytes>(C, ctas);
+  });
+}
+
+namespace {
+
+// ---------------------------------------------------------------------
+// The backward's cluster body
+// ---------------------------------------------------------------------
+
+// The shared memory gn_bwd_cluster carves: the slabs of x and of dy
+// (each rounded up to 16 bytes); part2,
+// gstat, part3 and coef [G] float2; cpart [C] float2; a work area of
+// rt * max(ct * VEC, 2 * C/seg) floats (the row threads' sums a channel,
+// or the statistics' two buffers); part1 [G] float.
+// ops/group_norm.py:backward_cluster_smem mirrors it.
+long bwd_cluster_smem(long R, long C, long G, long elt, long vec,
+                      long threads, long seg) {
+  const long cv = C / vec;
+  const long ct = cv < threads ? cv : threads;
+  const long rt = threads / ct;
+  const long cw = ct * vec, sw = 2 * (C / seg);
+  const long slab = (R * C * elt + 15) & ~15L;
+  return 2 * slab + 36 * G + 8 * C +
+         4 * rt * (cw > sw ? cw : sw);
+}
+
+// The per-channel sums of the CTA's rows for one vector of channels cv:
+// a[i] += gy, bq[i] += gy * xhat over rows ty, ty + rt, ... in row order
+template <typename T, int B, bool RELU>
+__device__ __forceinline__ void bwd_row_sums(
+    const typename Word<B>::type* xslab, const typename Word<B>::type* gslab,
+    const float2* gstat, const float* scale, const float* bias, int cv,
+    int CV, int cg, int rows, int ty, int rt, float* a, float* bq) {
+  constexpr int VEC = B / (int)sizeof(T);
+  float m[VEC], r[VEC], s[VEC], b[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int c = cv * VEC + i;
+    const float2 st = gstat[c / cg];
+    m[i] = st.x;
+    r[i] = st.y;
+    s[i] = scale[c];
+    b[i] = bias[c];
+  }
+#pragma unroll 4
+  for (int row = ty; row < rows; row += rt) {
+    float f[VEC], g[VEC];
+    unpack<T, B>(xslab[(size_t)row * CV + cv], f);
+    unpack<T, B>(gslab[(size_t)row * CV + cv], g);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float xh, gy;
+      bwd_element(f[i], g[i], m[i], r[i], s[i], b[i], RELU, xh, gy);
+      a[i] += gy;
+      bq[i] = fmaf(gy, xh, bq[i]);
+    }
+  }
+}
+
+// dx of the CTA's rows for the vectors of channels tx, tx + ct, ...
+template <typename T, int B, bool RELU>
+__device__ __forceinline__ void bwd_rows_dx(
+    const typename Word<B>::type* xslab, const typename Word<B>::type* gslab,
+    typename Word<B>::type* out, const float2* gstat, const float2* coef,
+    const float* scale, const float* bias, int CV, int cg, int rows, int tx,
+    int ct, int ty, int rt) {
+  constexpr int VEC = B / (int)sizeof(T);
+  for (int cv = tx; cv < CV; cv += ct) {
+    float m[VEC], r[VEC], s[VEC], b[VEC], c1[VEC], c2[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const int c = cv * VEC + i;
+      const float2 st = gstat[c / cg];
+      const float2 kf = coef[c / cg];
+      m[i] = st.x;
+      r[i] = st.y;
+      s[i] = scale[c];
+      b[i] = bias[c];
+      c1[i] = kf.x;
+      c2[i] = kf.y;
+    }
+#pragma unroll 4
+    for (int row = ty; row < rows; row += rt) {
+      float f[VEC], g[VEC];
+      unpack<T, B>(xslab[(size_t)row * CV + cv], f);
+      unpack<T, B>(gslab[(size_t)row * CV + cv], g);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float xh, gy;
+        bwd_element(f[i], g[i], m[i], r[i], s[i], b[i], RELU, xh, gy);
+        f[i] = r[i] * fmaf(-xh, c2[i], fmaf(gy, s[i], -c1[i]));
+      }
+      out[(size_t)row * CV + cv] = pack<T, B>(f);
+    }
+  }
+}
+
+// grid: N * k CTAs in clusters of k along x, one cluster per sample; at
+// most kBwdThreads threads (a multiple of 32). Writes dx and the sample's
+// per-channel (sum gy * xhat, sum gy) to part [N, C].
+template <typename T, int B>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+    gn_bwd_cluster(const T* __restrict__ x, const T* __restrict__ dy,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ dx,
+                   float2* __restrict__ part, int HW, int C, int G, int R,
+                   int seg, int relu, float eps) {
+  constexpr int VEC = B / (int)sizeof(T);
+  using W = typename Word<B>::type;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int n = blockIdx.x / k;
+  const int r0 = q * R;
+  const int rows = max(0, min(R, HW - r0));
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CV = C / VEC;
+  const int ct = min(CV, nthreads), rt = nthreads / ct;
+  const int tx = tid % ct, ty = tid / ct;
+  const bool active = ty < rt;
+  const int cg = C / G;
+  const int NS = C / seg;
+  const int cw = ct * VEC;  // channels of one round of the sums
+  const float count = (float)HW * (float)cg;
+
+  extern __shared__ __align__(16) unsigned char shm[];
+  const size_t slab_bytes =
+      ((size_t)R * C * sizeof(T) + 15) & ~(size_t)15;
+  W* xslab = reinterpret_cast<W*>(shm);
+  W* gslab = reinterpret_cast<W*>(shm + slab_bytes);
+  float2* part2 = reinterpret_cast<float2*>(shm + 2 * slab_bytes);
+  float2* gstat = part2 + G;
+  float2* part3 = gstat + G;
+  float2* coef = part3 + G;
+  float2* cpart = coef + G;
+  float* work = reinterpret_cast<float*>(cpart + C);
+  float* part1 = work + rt * max(cw, 2 * NS);
+
+  // x in kChunks groups of rows, then dy in one group
+  const size_t base = ((size_t)n * HW + r0) * C;
+  const W* xs = reinterpret_cast<const W*>(x + base);
+  const W* gs = reinterpret_cast<const W*>(dy + base);
+  for (int j = 0; j < kChunks; ++j) {
+    copy_words<B>(xslab, xs, rows * j / kChunks * CV,
+                  rows * (j + 1) / kChunks * CV);
+    cp_async_commit();
+  }
+  copy_words<B>(gslab, gs, 0, rows * CV);
+  cp_async_commit();
+  cluster_statistics<T, B>(cluster, xslab, rows, 1, HW, C, G, seg, eps,
+                           part1, part2, gstat, work, work + rt * NS);
+  cp_async_wait(0);
+  __syncthreads();
+
+  // per channel, sum gy and sum gy * xhat over the CTA's rows: each
+  // thread over its rows in row order, then the row threads in order (the
+  // first sum, then the second), cw channels a round
+  for (int cv0 = 0; cv0 < CV; cv0 += ct) {
+    const int cv = cv0 + tx;
+    const bool mine = active && cv < CV;
+    float a[VEC] = {}, bq[VEC] = {};
+    if (mine) {
+      if (relu)
+        bwd_row_sums<T, B, true>(xslab, gslab, gstat, scale, bias, cv, CV,
+                                 cg, rows, ty, rt, a, bq);
+      else
+        bwd_row_sums<T, B, false>(xslab, gslab, gstat, scale, bias, cv, CV,
+                                  cg, rows, ty, rt, a, bq);
+    }
+    for (int h = 0; h < 2; ++h) {
+      if (mine) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          work[ty * cw + tx * VEC + i] = h ? bq[i] : a[i];
+      }
+      __syncthreads();
+      for (int j = tid; j < cw && cv0 * VEC + j < C; j += nthreads) {
+        float v = work[j];
+        for (int t = 1; t < rt; ++t) v += work[t * cw + j];
+        float2& p = cpart[cv0 * VEC + j];
+        if (h) p.y = v;
+        else p.x = v;
+      }
+      __syncthreads();
+    }
+  }
+
+  // per group, sum_c scale * (those sums), channels in order; exchanged
+  // in rank order into c1 and c2
+  for (int g = tid; g < G; g += nthreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      const float s = scale[g * cg + j];
+      const float2 v = cpart[g * cg + j];
+      s1 = fmaf(s, v.x, s1);
+      s2 = fmaf(s, v.y, s2);
+    }
+    part3[g] = make_float2(s1, s2);
+  }
+  cluster.sync();
+  for (int g = tid; g < G; g += nthreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const float2 p = cluster.map_shared_rank(part3, r)[g];
+      s1 += p.x;
+      s2 += p.y;
+    }
+    coef[g] = make_float2(s1 / count, s2 / count);
+  }
+  // the sample's sums per channel, the CTAs in rank order; CTA q writes
+  // channels q, q + k, ...
+  for (int c = q + k * tid; c < C; c += k * nthreads) {
+    float sa = 0.f, sb = 0.f;
+    for (int r = 0; r < k; ++r) {
+      const float2 p = cluster.map_shared_rank(cpart, r)[c];
+      sa += p.x;
+      sb += p.y;
+    }
+    part[(size_t)n * C + c] = make_float2(sb, sa);
+  }
+  __syncthreads();
+
+  // dx from shared memory; one store a word
+  if (active) {
+    W* out = reinterpret_cast<W*>(dx + base);
+    if (relu)
+      bwd_rows_dx<T, B, true>(xslab, gslab, out, gstat, coef, scale, bias,
+                              CV, cg, rows, tx, ct, ty, rt);
+    else
+      bwd_rows_dx<T, B, false>(xslab, gslab, out, gstat, coef, scale, bias,
+                               CV, cg, rows, tx, ct, ty, rt);
+  }
+  // no CTA leaves while another may still read its part3 or cpart
+  cluster.sync();
+}
+
+// dscale and dbias: part [N, C] folded over the samples in sample order,
+// a thread a channel (32 samples' loads in flight at once: the kernel is
+// a few load latencies long)
+__global__ void gn_bwd_fold(const float2* __restrict__ part,
+                            float* __restrict__ dscale,
+                            float* __restrict__ dbias, int N, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float sb = 0.f, sa = 0.f;
+#pragma unroll 32
+  for (int n = 0; n < N; ++n) {
+    const float2 v = part[(size_t)n * C + c];
+    sb += v.x;
+    sa += v.y;
+  }
+  dscale[c] = sb;
+  dbias[c] = sa;
+}
+
+constexpr int kFoldThreads = 128;
+
+template <typename T, int B>
+int launch_bwd_cluster(const void* x, const void* dy, const float* scale,
+                       const float* bias, void* dx, float* dscale,
+                       float* dbias, float* part, int N, int HW, int C,
+                       int G, int k, int R, int threads, int seg, int smem,
+                       int relu, float eps, cudaStream_t stream) {
+  constexpr int VEC = B / (int)sizeof(T);
+  // the plan must cover every row and give the kernel the shared memory
+  // it carves
+  if (N < 1 || HW < 1 || G < 1 || C % G || C % VEC || seg < 1 ||
+      VEC % seg || (C / G) % seg || k < 1 || k > kMaxCluster || R < 1 ||
+      (long)R * k < HW || threads < 32 || threads > kBwdThreads ||
+      threads % 32 || smem > kMaxSmem ||
+      bwd_cluster_smem(R, C, G, sizeof(T), VEC, threads, seg) > smem)
+    return (int)cudaErrorInvalidValue;
+  int clusters = 0;
+  int e = occupancy(gn_bwd_cluster<T, B>, k, threads, smem, &clusters);
+  if (e != 0) return e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, N, k, threads, smem, stream);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_bwd_cluster<T, B>, static_cast<const T*>(x),
+      static_cast<const T*>(dy), scale, bias, static_cast<T*>(dx),
+      reinterpret_cast<float2*>(part), HW, C, G, R, seg, relu, eps);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  gn_bwd_fold<<<(C + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0,
+                stream>>>(reinterpret_cast<const float2*>(part), dscale,
+                          dbias, N, C);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The backward's cluster body: dx (x's type) and float32 dscale, dbias
+// [C] in two launches on `stream`, gn_bwd_cluster (one cluster of k CTAs
+// a sample, each holding `rows` rows of x and of dy) and gn_bwd_fold.
+// dtype and vec_bytes as for group_norm_bwd; part is float32 scratch
+// [N, C, 2] from the caller.
+extern "C" int group_norm_bwd_cluster(const void* x, const void* dy,
+                                      const float* scale, const float* bias,
+                                      void* dx, float* dscale, float* dbias,
+                                      float* part, int dtype, int vec_bytes,
+                                      int N, int HW, int C, int G, int k,
+                                      int rows, int threads, int seg,
+                                      int smem, int relu, float eps,
+                                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    using T = typename I::type;
+    return launch_bwd_cluster<T, I::bytes>(
+        x, dy, scale, bias, dx, dscale, dbias, part, N, HW, C, G, k, rows,
+        threads, seg, smem, relu, eps, s);
+  });
+}
+
+// How many clusters of the backward's cluster body the current card holds
+// at once (into *clusters); the same query its launch makes.
+extern "C" int group_norm_bwd_cluster_occupancy(int dtype, int vec_bytes,
+                                                int k, int threads,
+                                                int smem, int* clusters) {
+  if (k < 1 || k > kMaxCluster || smem > kMaxSmem || threads > kBwdThreads)
+    return (int)cudaErrorInvalidValue;
+  return with_instance(dtype, vec_bytes, [&](auto inst) {
+    using I = decltype(inst);
+    using T = typename I::type;
+    return occupancy(gn_bwd_cluster<T, I::bytes>, k, threads, smem,
+                     clusters);
   });
 }

@@ -15,8 +15,8 @@ optional ReLU, and the output in the input's dtype.
   for CUDA tensors and the plain version for CPU tensors; ``"cuda"`` and
   ``"torch"`` force one or the other. A CUDA tensor under ``"auto"``
   reaches the kernel or raises; there is no size gate and no fallback.
-* The kernel route's backward is a kernel too (``group_norm_bwd`` in the
-  same file): the JAX package's ``_gn_bwd`` is ``jax.vjp`` of its
+* The kernel route's backward is a kernel too (two bodies in the same
+  file, below): the JAX package's ``_gn_bwd`` is ``jax.vjp`` of its
   reference, and the kernel computes that vjp in closed form.
   :func:`group_norm_backward_reference` is its plain version (the same
   closed form in plain PyTorch, no autograd); :func:`group_norm_backward`
@@ -25,8 +25,9 @@ optional ReLU, and the output in the input's dtype.
 * ``launches`` counts calls that reach ``ops/csrc/group_norm.cu``'s
   forward: one per ``group_norm`` call, whichever body runs;
   ``cluster_launches`` counts those that ran the cluster body;
-  ``backward_launches`` counts calls of the backward kernel (five CUDA
-  launches each) and ``backward_dy_copies`` the calls whose ``dy`` was not
+  ``backward_launches`` counts calls of the backward kernel, whichever
+  body runs, ``backward_cluster_launches`` those that ran its cluster
+  body, and ``backward_dy_copies`` the calls whose ``dy`` was not
   contiguous in NHWC order and was copied first.
 
 The kernel file has two bodies, chosen by shape (:func:`cluster_plan`):
@@ -45,15 +46,31 @@ The kernel file has two bodies, chosen by shape (:func:`cluster_plan`):
   tiles' partials and the statistics, which the wrapper allocates only
   for it.
 
-The backward cuts each sample into tiles of rows (:func:`backward_plan`)
-and passes over them four times: the tiles' moments per group
-(``gn_bwd_stats``, merged into the statistics by the tiled body's
-``gn_merge``), the sums of ``gy`` and ``gy·x̂`` per tile and channel
-(``gn_bwd_reduce``), those folded over the tiles, the groups' channels
-and the samples in a fixed order (``gn_bwd_merge``), and ``dx``
-(``gn_bwd_apply``): five launches, no float atomics, so two launches on
-one input give the same bits. At ``y == 0`` the ReLU passes half the
-gradient, as ``jnp.maximum`` does in the JAX package.
+The backward has two bodies too, chosen by shape
+(:func:`backward_cluster_plan`); both recompute the statistics from
+``x``, use no float atomics (two launches on one input give the same
+bits) and pass half the gradient at ``y == 0``, as ``jnp.maximum`` does
+in the JAX package:
+
+* **the cluster body** (``gn_bwd_cluster`` and ``gn_bwd_fold``, two CUDA
+  launches a call): one cluster of ``k`` CTAs a sample, each CTA holding
+  a slab of the sample's rows of ``x`` and ``dy`` in shared memory, so
+  that both are read from device memory once; the forward's cluster
+  statistics, then the sums of ``gy`` and ``gy·x̂`` per channel and their
+  group means ``c1``, ``c2`` exchanged inside the cluster in a fixed
+  order, ``dx`` from shared memory, and each sample's per-channel sums to
+  a float32 scratch ``[N, C, 2]`` that the second launch folds over the
+  samples in order into ``dscale`` and ``dbias``. It takes every sample
+  whose ``x`` and ``dy`` fit ``k`` × 227 KB, which is every bf16
+  ResNet-50 site at 224².
+* **the five-launch body** for samples that do not fit (f32 at 112×112×64,
+  56×56×256 or 112×112×128): it cuts each sample into tiles of rows
+  (:func:`backward_plan`) and passes over them four times: the tiles'
+  moments per group (``gn_bwd_stats``, merged into the statistics by the
+  tiled body's ``gn_merge``), the sums of ``gy`` and ``gy·x̂`` per tile
+  and channel (``gn_bwd_reduce``), those folded over the tiles, the
+  groups' channels and the samples in a fixed order (``gn_bwd_merge``),
+  and ``dx`` (``gn_bwd_apply``).
 
 The kernel takes ``x`` contiguous in NHWC order (an NCHW tensor in
 ``torch.channels_last`` seen through ``permute(0, 2, 3, 1)`` is that), in
@@ -108,11 +125,12 @@ _BWD_MIN_ROWS = 16
 _BWD_RESIDENT = 3 * _SMS
 
 # launches of the CUDA kernel (either body) and of its cluster body, calls
-# of the backward kernel, and the backward's copies of a non-contiguous
-# dy; reset by whoever reads them
+# of the backward kernel (either body) and of its cluster body, and the
+# backward's copies of a non-contiguous dy; reset by whoever reads them
 launches = 0
 cluster_launches = 0
 backward_launches = 0
+backward_cluster_launches = 0
 backward_dy_copies = 0
 _count_lock = threading.Lock()
 
@@ -319,12 +337,48 @@ def cluster_smem(rows: int, c: int, groups: int, elt: int, vec: int,
     return slab + 20 * groups + 8 * rt * (c // seg)
 
 
-def resident_estimate(p: dict) -> int:
+def resident_estimate(p: dict, ctas_per_sm: int = 4) -> int:
     """Clusters of plan ``p`` an H100 holds at once, estimated without
-    the card: at most four 256-thread CTAs an SM (the registers of the
-    bf16 body), fewer where their shared memory runs out."""
-    per_sm = min(4, 233_472 // (p["smem"] + 1_024))
+    the card: at most ``ctas_per_sm`` 256-thread CTAs an SM (four for the
+    registers of the forward's bf16 body, two for the backward's launch
+    bound), fewer where their shared memory runs out."""
+    per_sm = min(ctas_per_sm, 233_472 // (p["smem"] + 1_024))
     return _SMS * per_sm // p["k"]
+
+
+def _cluster_plans(n: int, hw: int, c: int, dtype: torch.dtype,
+                   groups: int, align: int, resident, smem_of
+                   ) -> dict | None:
+    """The choice both cluster bodies make: for each ``k`` (a power of
+    two up to 16) whose ``⌈hw/k⌉`` rows a CTA leave no CTA empty, with
+    ``smem_of(rows, elt, vec, seg)`` bytes of shared memory a CTA of
+    ``_CLUSTER_THREADS`` threads within 227 KB, the plan, if
+    ``resident(plan)`` clusters of it fit the card at once (at least
+    one); among those, in order: the fewest waves of ``n`` clusters;
+    enough CTAs (``n·k``) to reach 7 of every 8 SMs; a CTA small enough
+    for two to share an SM; the smallest ``k``."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    vb = vector_bytes(c, elt, align)
+    vec = vb // elt
+    seg = segment(c, groups, vec)
+    cover = _SMS - _SMS // 8
+    plans = []
+    k = 1
+    while k <= _MAX_CLUSTER:
+        rows = -(-hw // k)
+        smem = smem_of(rows, elt, vec, seg)
+        if (k == 1 or (k - 1) * rows < hw) and smem <= _MAX_SMEM:
+            p = {"k": k, "rows": rows, "threads": _CLUSTER_THREADS,
+                 "vec_bytes": vb, "seg": seg, "smem": smem}
+            clusters = resident(p)
+            if clusters >= 1:
+                p["waves"] = -(-n // clusters)
+                plans.append(p)
+        k *= 2
+    if not plans:
+        return None
+    return min(plans, key=lambda p: (p["waves"], n * p["k"] < cover,
+                                     p["smem"] > _TWO_PER_SM_SMEM, p["k"]))
 
 
 def cluster_plan(n: int, hw: int, c: int, dtype: torch.dtype, groups: int,
@@ -343,52 +397,75 @@ def cluster_plan(n: int, hw: int, c: int, dtype: torch.dtype, groups: int,
     ``n`` clusters; enough CTAs (``n·k``) to reach 7 of every 8 SMs; a
     slab small enough for two CTAs to share an SM; the smallest ``k``.
     ``align`` is the byte alignment of the data pointers."""
-    elt = torch.empty((), dtype=dtype).element_size()
-    vb = vector_bytes(c, elt, align)
-    vec = vb // elt
-    seg = segment(c, groups, vec)
-    threads = _CLUSTER_THREADS
-    cover = _SMS - _SMS // 8
-    plans = []
-    k = 1
-    while k <= _MAX_CLUSTER:
-        rows = -(-hw // k)
-        smem = cluster_smem(rows, c, groups, elt, vec, threads, seg)
-        if (k == 1 or (k - 1) * rows < hw) and smem <= _MAX_SMEM:
-            p = {"k": k, "rows": rows, "threads": threads,
-                 "vec_bytes": vb, "seg": seg, "smem": smem}
-            clusters = resident(p)
-            if clusters >= 1:
-                p["waves"] = -(-n // clusters)
-                plans.append(p)
-        k *= 2
-    if not plans:
-        return None
-    return min(plans, key=lambda p: (p["waves"], n * p["k"] < cover,
-                                     p["smem"] > _TWO_PER_SM_SMEM, p["k"]))
+    return _cluster_plans(
+        n, hw, c, dtype, groups, align, resident,
+        lambda rows, elt, vec, seg: cluster_smem(
+            rows, c, groups, elt, vec, _CLUSTER_THREADS, seg))
+
+
+def backward_cluster_smem(rows: int, c: int, groups: int, elt: int,
+                          vec: int, threads: int, seg: int) -> int:
+    """Bytes of shared memory a CTA of the backward's cluster body takes:
+    its slabs of ``rows × c`` elements of ``x`` and of ``dy`` (each
+    rounded up to 16 bytes), 36 bytes a group and 8
+    a channel for the exchanged partials, the statistics and ``c1``,
+    ``c2``, and a work area of ``rt·max(ct·vec, 2·c/seg)`` floats. The
+    ``.cu`` file's ``bwd_cluster_smem`` carves the same."""
+    ct = min(c // vec, threads)
+    rt = threads // ct
+    slab = -(-rows * c * elt // 16) * 16
+    return (2 * slab + 36 * groups + 8 * c
+            + 4 * rt * max(ct * vec, 2 * (c // seg)))
+
+
+def backward_cluster_plan(n: int, hw: int, c: int, dtype: torch.dtype,
+                          groups: int, align: int = _WIDEST_WORD,
+                          resident=functools.partial(resident_estimate,
+                                                     ctas_per_sm=2)
+                          ) -> dict | None:
+    """How the backward's cluster body cuts one call, or ``None`` where no
+    cluster of up to 16 CTAs the card holds fits a sample's ``x`` and
+    ``dy`` in its shared memory (the five-launch body then runs). The
+    choice is :func:`cluster_plan`'s, over :func:`backward_cluster_smem`;
+    without the card, at most two CTAs an SM (the kernel's launch bound,
+    128 registers a thread)."""
+    return _cluster_plans(
+        n, hw, c, dtype, groups, align, resident,
+        lambda rows, elt, vec, seg: backward_cluster_smem(
+            rows, c, groups, elt, vec, _CLUSTER_THREADS, seg))
+
+
+# the argument types of each C entry point of ``ops/csrc/group_norm.cu``
+# (pointers and the stream as ``c_void_p``, an output count as a pointer
+# to ``c_int``)
+_ARGTYPES = {
+    "group_norm_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+    + [ctypes.c_float, ctypes.c_void_p],
+    "group_norm_fwd_cluster": [ctypes.c_void_p] * 4
+    + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    "group_norm_cluster_occupancy": [ctypes.c_int] * 5
+    + [ctypes.POINTER(ctypes.c_int)],
+    "group_norm_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_void_p],
+    "group_norm_bwd_resident": [ctypes.c_int] * 3
+    + [ctypes.POINTER(ctypes.c_int)],
+    "group_norm_bwd_cluster": [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p],
+    "group_norm_bwd_cluster_occupancy": [ctypes.c_int] * 5
+    + [ctypes.POINTER(ctypes.c_int)],
+}
 
 
 def _kernel_fn(name: str = "group_norm_fwd"):
     """A C entry point of ``ops/csrc/group_norm.cu`` (``group_norm_fwd``,
     the tiled body; ``group_norm_fwd_cluster``; ``group_norm_cluster_
-    occupancy``; ``group_norm_bwd``; ``group_norm_bwd_resident``), built
-    on first use, with every argument typed (pointers and the stream as
-    ``c_void_p``)."""
+    occupancy``; ``group_norm_bwd``; ``group_norm_bwd_resident``;
+    ``group_norm_bwd_cluster``; ``group_norm_bwd_cluster_occupancy``), built
+    on first use, with every argument typed by :data:`_ARGTYPES`."""
     from mmlspark_tpu_torch.ops import _build
     fn = getattr(_build.load("group_norm"), name)
     if fn.argtypes is None:
-        fn.argtypes = {
-            "group_norm_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
-            + [ctypes.c_float, ctypes.c_void_p],
-            "group_norm_fwd_cluster": [ctypes.c_void_p] * 4
-            + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p],
-            "group_norm_cluster_occupancy": [ctypes.c_int] * 5
-            + [ctypes.POINTER(ctypes.c_int)],
-            "group_norm_bwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_void_p],
-            "group_norm_bwd_resident": [ctypes.c_int] * 3
-            + [ctypes.POINTER(ctypes.c_int)],
-        }[name]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -403,6 +480,19 @@ def cluster_occupancy(dtype: torch.dtype, p: dict) -> int:
     if err != 0:
         raise RuntimeError(f"group_norm cluster occupancy query failed: "
                            f"cudaError {err} (plan {p})")
+    return out.value
+
+
+def backward_cluster_occupancy(dtype: torch.dtype, p: dict) -> int:
+    """How many clusters of backward plan ``p`` the current card holds at
+    once (the query the backward's cluster launch makes)."""
+    out = ctypes.c_int(0)
+    err = _kernel_fn("group_norm_bwd_cluster_occupancy")(
+        _DTYPES[dtype], p["vec_bytes"], p["k"], p["threads"], p["smem"],
+        ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"group_norm backward cluster occupancy query "
+                           f"failed: cudaError {err} (plan {p})")
     return out.value
 
 
@@ -451,6 +541,16 @@ def _device_backward_plan(n, hw, c, dtype, vec_bytes, device) -> dict:
             f"group_norm backward occupancy query failed: cudaError {err}, "
             f"{out.value} CTAs (C {c}, {dtype}, {vec_bytes}-byte words)")
     return backward_plan(n, hw, out.value)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_backward_cluster_plan(n, hw, c, dtype, groups, align,
+                                  device) -> dict | None:
+    """:func:`backward_cluster_plan` with the current card's occupancy
+    query, once for each shape on each card."""
+    return backward_cluster_plan(
+        n, hw, c, dtype, groups, align,
+        resident=lambda p: backward_cluster_occupancy(dtype, p))
 
 
 def _pointer_align(*tensors: torch.Tensor) -> int:
@@ -512,10 +612,11 @@ def _group_norm_cuda(x, scale, bias, num_groups: int, eps: float,
 def _group_norm_bwd_cuda(dy, x, scale, bias, num_groups: int, eps: float,
                          relu: bool):
     """Launch the backward kernel on the current stream; returns ``(dx,
-    dscale, dbias)``, ``dx`` in ``x``'s dtype, the others float32. ``dy``
-    is copied to NHWC-contiguous first where it is not (counted in
-    ``backward_dy_copies``). The outputs and the float32 scratch are
-    allocated here; the kernel allocates nothing."""
+    dscale, dbias)``, ``dx`` in ``x``'s dtype, the others float32: the
+    cluster body where :func:`backward_cluster_plan` finds one, else the
+    five-launch body. ``dy`` is copied to NHWC-contiguous first where it
+    is not (counted in ``backward_dy_copies``). The outputs and the
+    float32 scratch are allocated here; the kernel allocates nothing."""
     global backward_launches, backward_dy_copies
     if not x.is_cuda:
         raise ValueError("the group_norm backward kernel needs CUDA tensors; "
@@ -531,7 +632,14 @@ def _group_norm_bwd_cuda(dy, x, scale, bias, num_groups: int, eps: float,
             backward_dy_copies += 1
     n, h, w, c = x.shape
     dx = torch.empty_like(x)
-    vb = vector_bytes(c, x.element_size(), _pointer_align(x, dy, dx))
+    align = _pointer_align(x, dy, dx)
+    with torch.cuda.device(x.device):
+        cp = _device_backward_cluster_plan(n, h * w, c, x.dtype, num_groups,
+                                           align, x.device.index)
+    if cp is not None:
+        return _group_norm_bwd_cluster(dy, x, scale, bias, num_groups, eps,
+                                       relu, cp, dx)
+    vb = vector_bytes(c, x.element_size(), align)
     f32 = dict(dtype=torch.float32, device=x.device)
     dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
     stats = torch.empty((n, num_groups, 2), **f32)
@@ -555,6 +663,39 @@ def _group_norm_bwd_cuda(dy, x, scale, bias, num_groups: int, eps: float,
             f"group_norm backward kernel launch failed: cudaError {err} "
             f"(x {tuple(x.shape)} {x.dtype}, groups {num_groups}, "
             f"{vb}-byte words, tiles {bp})")
+    return dx, dscale, dbias
+
+
+def _group_norm_bwd_cluster(dy, x, scale, bias, num_groups: int, eps: float,
+                            relu: bool, plan: dict, dx=None):
+    """Launch the backward's cluster body with ``plan`` (a
+    :func:`backward_cluster_plan`) on the current stream, ``x`` and ``dy``
+    checked and NHWC-contiguous; returns ``(dx, dscale, dbias)`` into
+    ``dx`` where given."""
+    global backward_launches, backward_cluster_launches
+    n, h, w, c = x.shape
+    if dx is None:
+        dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
+    part = torch.empty((n, c, 2), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn = _kernel_fn("group_norm_bwd_cluster")
+        with _count_lock:
+            backward_launches += 1
+            backward_cluster_launches += 1
+        err = fn(x.data_ptr(), dy.data_ptr(), scale.data_ptr(),
+                 bias.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                 dbias.data_ptr(), part.data_ptr(), _DTYPES[x.dtype],
+                 plan["vec_bytes"], n, h * w, c, num_groups, plan["k"],
+                 plan["rows"], plan["threads"], plan["seg"], plan["smem"],
+                 int(relu), float(eps), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"group_norm backward kernel launch failed: cudaError {err} "
+            f"(x {tuple(x.shape)} {x.dtype}, groups {num_groups}, "
+            f"cluster plan {plan})")
     return dx, dscale, dbias
 
 

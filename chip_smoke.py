@@ -25,10 +25,16 @@ Phases, each printing JSON lines:
    version at the generation path's geometry (32 slots, H=12, a 1024-token
    f32 cache horizon, D=64, on the strided layer slice of the cache and the
    q view of the fused projection), with valid lengths drawn in 16–320 and
-   one empty slot (exact zeros), and at the edge cases (a mask with holes,
-   the full horizon, D in {32, 128}, a ragged Tk=37), with its time, the
-   plain version's, ``scaled_dot_product_attention``'s and the bound over
-   the valid keys and over the full horizon;
+   one empty slot (exact zeros), and at the edge cases (valid lengths 0,
+   1, 31, 32, 33, 320 and 1024 at the kernel's chunk and stage
+   boundaries, masks with holes and long gaps, the full horizon, D in
+   {32, 128}, a ragged Tk=37), every case launched twice and equal bit
+   for bit; one slot-independence check (three slots' outputs unchanged
+   bit for bit when every other slot's q, K, V and mask rows are
+   replaced); its time with L2 warm and flushed, over the valid keys and
+   over the full horizon, against the bound over each, the plain
+   version's and ``scaled_dot_product_attention``'s, and its time over a
+   sweep of equal valid lengths (0 keys: its fixed cost);
 4. **generate** — a causal TransformerTagger at GPT-2 small's widths
    (weights from a seed) served through ``ModelServer.add_generator``: a
    burst of 64 streaming requests (prompts of 16–256 tokens, 64 new tokens
@@ -266,6 +272,10 @@ TRAIN_BF16_RATIO_TOL = 1.5
 DECODE_TOL = 1e-5
 DECODE_SLOTS, DECODE_HEADS, DECODE_HORIZON, DECODE_HEAD_DIM = 32, 12, 1024, 64
 DECODE_LENGTHS = (16, 320)
+# valid lengths at the kernel's chunk and stage boundaries (8 warps, stages
+# of 8 keys), and the equal lengths of the timed sweep
+DECODE_EDGE_LENGTHS = (0, 1, 31, 32, 33, 320, 1024, 0)
+DECODE_SWEEP_LENGTHS = (0, 8, 32, 64, 128, 192, 256, 320, 1024)
 
 # generation: the repo's causal TransformerTagger at the published widths of
 # GPT-2 small (Radford et al. 2019; the Hugging Face gpt2 config: n_embd
@@ -1285,7 +1295,8 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
 
 def _decode_case(s_, h, tk, d, keep_np, gen):
     """q as the model passes it (a view of the fused qkv projection) and
-    k/v as layer slices of a two-layer slot-major cache."""
+    k/v as layer slices of a two-layer slot-major cache. The kernel runs
+    twice on the same inputs and must repeat bit for bit."""
     import torch
 
     from mmlspark_tpu_torch.ops import attention as fa
@@ -1296,24 +1307,56 @@ def _decode_case(s_, h, tk, d, keep_np, gen):
     k, v = ck[:, 1], cv[:, 1]
     keep = torch.from_numpy(keep_np).to(DEV)
     got = fa.decode_attention(q, k, v, kv_mask=keep)
+    again = fa.decode_attention(q, k, v, kv_mask=keep)
     torch.cuda.synchronize()
     want = fa.decode_attention(q, k, v, kv_mask=keep, impl="torch")
     check(got.dtype == torch.float32 and got.shape == want.shape,
           f"kernel output {got.dtype} {tuple(got.shape)}")
     check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    check(torch.equal(got, again),
+          f"two decode_attention launches on the same inputs differ "
+          f"(S={s_}, H={h}, Tk={tk}, D={d})")
     err = float((got - want).abs().max())
     empty = [i for i in range(s_) if not keep_np[i].any()]
     for i in empty:
         check(bool((got[i] == 0).all()), "an empty slot is not exact zeros")
     row = {"phase": "kernel", "kernel": "decode_attention", "S": s_, "H": h,
            "Tk": tk, "D": d, "valid_keys": int(keep_np.sum()),
-           "empty_slots": empty, "max_abs_err": err, "tol": DECODE_TOL}
+           "lengths": [int(x) for x in keep_np.sum(axis=1)],
+           "empty_slots": empty, "max_abs_err": err, "tol": DECODE_TOL,
+           "bitwise_repeat": True}
     return row, (q, k, v, keep)
+
+
+def _decode_slot_independence(q, k, v, keep, gen, slots) -> dict:
+    """Every slot but ``slots`` gets new q, K, V and mask rows; the kernel's
+    outputs of ``slots`` must not change by a bit."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import attention as fa
+    base = fa.decode_attention(q, k, v, kv_mask=keep)
+    others = [i for i in range(q.shape[0]) if i not in slots]
+    q2, k2, v2, keep2 = (t.clone() for t in (q, k, v, keep))
+    q2[others] = torch.randn(q2[others].shape, generator=gen, device=DEV)
+    k2[others] = torch.randn(k2[others].shape, generator=gen, device=DEV)
+    v2[others] = torch.randn(v2[others].shape, generator=gen, device=DEV)
+    keep2[others] = torch.rand(keep2[others].shape, generator=gen,
+                               device=DEV) < 0.5
+    got = fa.decode_attention(q2, k2, v2, kv_mask=keep2)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(base[slots], got[slots]))
+    check(same, f"decode_attention output of slots {slots} changed when the "
+          "other slots' q, K, V and mask rows were replaced")
+    return {"slots": list(slots), "neighbours_replaced": len(others),
+            "bitwise_equal": same}
 
 
 def phase_decode_attention() -> dict:
     """The decode-attention kernel against its plain version at the
-    generation geometry and the edge cases; times at the geometry."""
+    generation geometry and the edge cases, each launched twice (bit for
+    bit), with one slot-independence check; times at the geometry with L2
+    warm and flushed, over the full horizon, and over a sweep of equal
+    valid lengths (the kernel's fixed cost and the cost of its stages)."""
     import torch
     import torch.nn.functional as F
 
@@ -1327,8 +1370,19 @@ def phase_decode_attention() -> dict:
     prefix = np.arange(tk)[None, :] < lengths[:, None]
     holes = rng.random((3, 200)) < 0.3
     holes[1] = False
+    # the kernel's chunk and stage boundaries: a slot's valid range is cut
+    # into 8 warp chunks walked in stages of 8 keys
+    edges = np.arange(tk)[None, :] < np.array(DECODE_EDGE_LENGTHS)[:, None]
+    gaps = rng.random((4, tk)) < 0.3
+    gaps[0, 40:1000] = False
+    gaps[1] = False
+    gaps[1, [3, 517, 1023]] = True
+    gaps[3, :] = False
+    gaps[3, 700] = True
     cases = [(s_, h, tk, d, prefix, True),
              (s_, h, tk, d, np.ones((s_, tk), bool), False),
+             (len(DECODE_EDGE_LENGTHS), h, tk, d, edges, False),
+             (4, h, tk, d, gaps, False),
              (3, h, 200, d, holes, False),
              (4, 4, 300, 128, np.arange(300)[None, :]
               < np.array([300, 1, 0, 129])[:, None], False),
@@ -1340,10 +1394,18 @@ def phase_decode_attention() -> dict:
         row, (q, k, v, keep) = _decode_case(cs, ch, ctk, cd, keep_np, gen)
         worst = max(worst, row["max_abs_err"])
         if timed:
+            # the longest slot, the empty one and a mid-length one
+            row["slot_independence"] = _decode_slot_independence(
+                q, k, v, keep, gen, sorted({int(np.argmax(lengths)),
+                                            s_ // 2, 0}))
             mask2 = fa.decode_mask2(cs, ctk, keep, q.device)
             scale = fa.resolve_scale(None, cd)
-            row["ms"] = time_ms(lambda: fa._decode_cuda(q, k, v, mask2,
-                                                        scale))
+
+            def kernel(m2=mask2):
+                return fa._decode_cuda(q, k, v, m2, scale)
+
+            row["ms"] = time_ms(kernel)
+            row["ms_cold_l2"] = time_ms(kernel, flush_l2=True)
             row["plain_ms"] = time_ms(lambda: fa.decode_attention_reference(
                 q, k, v, mask2, scale))
             # the library call needs a valid key in every row: the empty
@@ -1361,11 +1423,34 @@ def phase_decode_attention() -> dict:
             row["bound_ms"] = bounds["valid"]["bound_ms"]
             row["bound_by"] = bounds["valid"]["bound_by"]
             row["x_bound"] = row["ms"] / row["bound_ms"]
+            row["x_bound_cold_l2"] = row["ms_cold_l2"] / row["bound_ms"]
             row["mean_valid_length"] = float(np.mean(lengths))
             # every key valid: the kernel against the full-horizon bound
             full = fa.decode_mask2(cs, ctk, None, q.device)
-            row["ms_full_horizon"] = time_ms(
-                lambda: fa._decode_cuda(q, k, v, full, scale))
+            row["ms_full_horizon"] = time_ms(lambda: kernel(full))
+            row["ms_full_horizon_cold_l2"] = time_ms(lambda: kernel(full),
+                                                     flush_l2=True)
+            full_ms = bounds["full"]["bound_ms"]
+            row["x_bound_full_horizon"] = row["ms_full_horizon"] / full_ms
+            row["x_bound_full_horizon_cold_l2"] = (
+                row["ms_full_horizon_cold_l2"] / full_ms)
+            # every slot at one valid length, L2 warm: 0 keys is the fixed
+            # cost (launch, q, the mask scan, the merge), 8 one key a warp,
+            # 64 one full stage a warp, 128 two (both in flight from the
+            # start), 192 three; from 256 the keys' bytes pass the L2
+            sweep = {}
+            for n in DECODE_SWEEP_LENGTHS:
+                eq = fa.decode_mask2(cs, ctk, torch.arange(
+                    ctk, device=q.device)[None, :].expand(cs, ctk) < n,
+                    q.device)
+                sweep[str(n)] = {
+                    "ms": time_ms(lambda: kernel(eq)),
+                    "bound_ms": decode_bound(ch, cd, [n] * cs,
+                                             ctk)["valid"]["bound_ms"]}
+            row["length_sweep"] = sweep
+            # one launch's floor by the same timing: a one-element fill
+            one = torch.empty(1, device=DEV)
+            row["launch_floor_ms"] = time_ms(one.zero_)
             main = row
         emit(row)
         check(row["max_abs_err"] <= DECODE_TOL,
@@ -2816,7 +2901,8 @@ def main() -> int:
                 "source": "mmlspark_tpu_torch/ops/csrc/decode_attention.cu",
                 "replaces": "mmlspark_tpu/ops/pallas/attention.py:370",
                 "launches": launches, "max_abs_err": dec["max_abs_err"],
-                "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+                "ms": dec["ms"], "ms_cold_l2": dec["ms_cold_l2"],
+                "plain_ms": dec["plain_ms"],
                 "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"]})
     gn = phase_group_norm() if "group_norm" in phases else None

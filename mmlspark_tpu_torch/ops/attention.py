@@ -379,15 +379,20 @@ def _check_decode_operands(q, k, v) -> None:
             "with D a multiple of 8")
 
 
+# decode_attention_fwd's C arguments: 5 pointers (q, k, v, mask, out), S,
+# H, Tk, D, the 8 strides, the scale and the stream
+_DECODE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_longlong] * 8
+                    + [ctypes.c_float, ctypes.c_void_p])
+
+
 def _decode_kernel_fn():
     """The C entry point of ``ops/csrc/decode_attention.cu``, built on
     first use, every argument typed."""
     from mmlspark_tpu_torch.ops import _build
     fn = _build.load("decode_attention").decode_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = _DECODE_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -401,11 +406,12 @@ def _decode_cuda(q, k, v, keep, scale: float) -> torch.Tensor:
             raise ValueError(
                 f"{name} must have a contiguous last axis (the kernel takes "
                 f"the other strides); got strides {t.stride()}")
-    # K rows are read 16 bytes at a time
-    if k.data_ptr() % 16 or any(st % 4 for st in k.stride()[:3]):
-        raise ValueError(
-            f"k rows must be 16-byte aligned: data_ptr {k.data_ptr()}, "
-            f"strides {k.stride()}")
+    # K and V rows are staged by 16-byte copies
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name} rows must be 16-byte aligned: data_ptr "
+                f"{t.data_ptr()}, strides {t.stride()}")
     s_, h, d = q.shape
     tk = k.shape[2]
     fn = _decode_kernel_fn()
@@ -433,7 +439,8 @@ def decode_attention(q, k, v, kv_mask=None, scale=None, impl: str = "auto",
     bool (True = valid cached position; typically ``arange(Tk) <=
     position``). Returns ``[S, H, D]`` float32; fully masked slots are
     exact zeros. ``block_k`` is the plain version's key-block width; the
-    kernel walks keys in tiles of 32."""
+    kernel splits each slot's valid key range over its warps and walks
+    each warp's part in stages of 8 keys."""
     _check_decode_operands(q, k, v)
     route = resolve_impl(impl, q)
     s_, h, d = q.shape

@@ -125,10 +125,27 @@ Phases, each printing JSON lines:
     K3's forward and backward kernels' share; the traced step must hold
     48 backward calls with each of its two kernels 48 times and no call
     of a plain block-update route);
-11. **kernels** — one line listing every ported kernel.
+11. **cifar** — the CIFAR-10 ConvNet (``ConvNet_CIFAR10`` at full
+    width, bf16) at the repo's headline setup: (a) trained through
+    ``Trainer.fit_arrays`` at batch 1024 on uint8 32×32×3 rows (crop_pad
+    4, flips, brightness, contrast; momentum SGD) for 1 + 8 steps: every
+    loss finite, no kernel of the port launched (its convs, GEMMs and
+    pooling are PyTorch's); images/s, step ms, ``mfu_bf16``,
+    input-bound fraction, peak memory, and one synchronised and traced
+    step (device busy and idle, top kernels); (b) the float32 model on
+    the card against the same weights on the CPU (both nodes), bf16
+    against float32, and the first step's loss in bf16
+    against float32; (c) 8192 uint8 rows featurized and scored through
+    ``TorchModel`` at minibatch 1024 (rows/s, one traced minibatch);
+    (d) trained on a learnable class-blob task through the input scoring
+    gives it and scored on held-out rows (the loss must fall; accuracy
+    and confusion matrix); (e) that bundle served through
+    ``ModelServer.add_model`` to single-row requests from 4 clients,
+    each answer held against ``TorchModel``'s;
+12. **kernels** — one line listing every ported kernel.
 
 Phases run in the order attention, serve, decode_attention, generate,
-group_norm, resize, train, block_update, sp_train. Then the card's name
+group_norm, resize, train, block_update, sp_train, cifar. Then the card's name
 and power limit, and last, when every phase ran, the result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it, as does a machine without CUDA or a directory without the
@@ -151,7 +168,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("attention", "serve", "decode_attention", "generate",
-          "group_norm", "resize", "train", "block_update", "sp_train")
+          "group_norm", "resize", "train", "block_update", "sp_train",
+          "cifar")
 DEV = "cuda"
 
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
@@ -369,6 +387,57 @@ SP_LOGIT_TOL = 1e-4
 # all parameters, 1.8e-6 in the worst tensor)
 SP_LOSS_TOL = 1e-4
 SP_GRAD_TOL = 1e-4
+
+# the CIFAR-10 ConvNet (ConvNet_CIFAR10 at full width, bf16; ROADMAP A5),
+# trained at the repo's headline setup (bench.py:899-941, :1226-1240):
+# batch 1024, momentum SGD at 0.01, uint8 32x32x3 rows with on-device
+# crop_pad 4, flips, brightness and contrast (no resize, so no kernel of
+# the port). Data from numpy's seed 0. Cut: 1 warm-up step and 8 timed
+# ones, random labels
+CIFAR_BATCH = 1024
+CIFAR_STEPS = 9
+CIFAR_SPEC = dict(crop_pad=4, flip_lr=True, brightness=0.1,
+                  contrast=(0.9, 1.1))
+CIFAR_CLASSES = 10
+# scoring through TorchModel as bench.py:1016-1030 does: 8192 flat uint8
+# rows of 3072 values at minibatch 1024, best of 2 after a warm call
+CIFAR_SCORE_ROWS = 8192
+# train, then evaluate: a learnable task (the class-blob images of
+# tools/build_model_repo.py rounded to uint8), trained through the input
+# that scoring gives the model (center_128: input_scale 1 and a mean of
+# 128) with Adam, as that tool's _train_eval trains, and scored on the
+# held-out rows. Its 1e-3 diverged at full width on these ±128 inputs (a
+# loss of 236 at step 2, 59% held out on an H100), 1e-4 did not.
+# Cut: CIFAR_EVAL_EPOCHS epochs
+CIFAR_EVAL_TRAIN, CIFAR_EVAL_TEST = 8192, 2048
+CIFAR_EVAL_BATCH, CIFAR_EVAL_EPOCHS, CIFAR_EVAL_LR = 256, 2, 1e-4
+# held-out accuracy floor: chance is 0.1; Adam at 1e-4 and 3e-4 over 2 and
+# 4 epochs all scored 1.0 on an H100
+CIFAR_EVAL_MIN_ACCURACY = 0.9
+# serving: single-row requests through ModelServer from a few clients
+CIFAR_SERVE_CLIENTS, CIFAR_SERVE_REQUESTS = 4, 48
+CIFAR_SERVE_BUCKETS = (1, 8, 32)
+# errors are taken over a whole output, relative to its largest
+# magnitude: a float32 sum-order error scales with the sums, not with
+# each value (tests/test_torch_convnet.py). Float32 on the card against
+# the same weights on the CPU, TF32 off (device.py): both sum each conv's
+# 3·3·C products in their own order, over 7 layers (measured 2.3e-6 on
+# features and 3.1e-6 on logits on an H100)
+CIFAR_F32_TOL = 1e-5
+# bf16 against float32 on the card, the same weights: bf16 keeps 8 bits
+# (a step of 2^-8 to 2^-7 of a value), every conv and dense output is
+# rounded, and 7 layers carry the roundings on (measured 7.8e-3 on
+# features, 1.3e-2 on logits)
+CIFAR_BF16_TOL = 3e-2
+# the first step's loss in bf16 against float32: about ln 10 = 2.3 from
+# logits near 0 (inputs scaled to [0, 1]), so the logits' bf16 roundings
+# barely reach it (measured 1.3e-5)
+CIFAR_LOSS_TOL = 1e-3
+# served bf16 logits against TorchModel's for the same row: the two pack
+# the row into batches of other sizes, so the convs may take other
+# algorithms and round other sums; 1e-2 is one to two bf16 steps of the
+# largest logit (measured 1.3e-3)
+CIFAR_SERVE_TOL = 1e-2
 
 
 def emit(obj: dict) -> None:
@@ -2851,6 +2920,429 @@ def phase_sp_train(card: str, bu: dict | None) -> dict:
     return {"forward": launches, "backward": bwd_launches}
 
 
+def convnet_forward_flops(widths, dense_width, num_classes,
+                          input_spec=(32, 32, 3)) -> float:
+    """Analytic forward FLOPs an example of the ConvNet (2 × the
+    multiply-adds of its convs and dense layers), as bench.py:29
+    ``conv_flops_per_example`` counts them: 1.223 G at full width."""
+    h, w, cin = input_spec
+    flops = 0.0
+    for width in widths:
+        for _ in range(2):  # two convs per block
+            flops += 2 * h * w * 3 * 3 * cin * width
+            cin = width
+        h, w = h // 2, w // 2
+    flops += 2 * h * w * cin * dense_width
+    return flops + 2 * dense_width * num_classes
+
+
+def _port_kernel_launches() -> dict:
+    """Every launch counter of the port's kernels (the path under test
+    must leave them all at 0)."""
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    from mmlspark_tpu_torch.ops import resize as rs_op
+    return {"flash_attention": fa.launches,
+            "decode_attention": fa.decode_launches,
+            "attention_block_update": fa.block_update_launches,
+            "attention_block_update_backward":
+                fa.block_update_backward_launches,
+            "group_norm": gn_op.launches,
+            "group_norm_backward": gn_op.backward_launches,
+            "fused_resize_norm": rs_op.launches}
+
+
+def _reset_port_kernel_launches() -> None:
+    from mmlspark_tpu_torch.ops import attention as fa
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    from mmlspark_tpu_torch.ops import resize as rs_op
+    fa.launches = fa.decode_launches = fa.block_update_launches = 0
+    fa.block_update_backward_launches = 0
+    gn_op.launches = gn_op.backward_launches = rs_op.launches = 0
+
+
+# kinds of device work in a trace, by a word of the kernel's name (the
+# first that matches); what matches none is "other"
+TRACE_KINDS = (("conv_gemm", ("gemm", "xmma", "cutlass", "conv", "cudnn")),
+               ("pooling", ("max_pool",)), ("reduce", ("reduce_kernel",)),
+               ("elementwise", ("elementwise",)), ("copy", ("Memcpy",
+                                                             "Memset")))
+
+
+def _trace_kind(key: str) -> str:
+    return next((kind for kind, words in TRACE_KINDS
+                 if any(w in key for w in words)), "other")
+
+
+def _device_trace(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device's busy time
+    (kernels and copies) in all and by kind (TRACE_KINDS), the kernels
+    launched and the busiest ones."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [(e.key, e.self_device_time_total / 1e3, e.count)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    check(bool(device), "the trace holds no device time")
+    by_kind = {kind: 0.0 for kind, _ in TRACE_KINDS + (("other", ()),)}
+    for key, ms, _ in device:
+        by_kind[_trace_kind(key)] += ms
+    return {"device_busy_ms": sum(ms for _, ms, _ in device),
+            "busy_ms_by_kind": by_kind,
+            "kernels_launched": sum(n for _, _, n in device),
+            "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                            sorted(device, key=lambda d: -d[1])[:8]]}
+
+
+def _synced_ms(fn, reps: int) -> float:
+    """Mean host time of ``fn`` in ms, each call ended by a synchronise."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _relative_gap(got, want) -> float:
+    """max |got − want| over max |want|: an error relative to the
+    output's scale."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _class_blobs(n, shape, n_classes, seed=0):
+    """Deterministic learnable image task (copied from
+    tools/build_model_repo.py): class-dependent mean shift."""
+    r = np.random.default_rng(seed)
+    y = r.integers(0, n_classes, n)
+    x = r.normal(size=(n,) + shape).astype(np.float32) * 20 + 128
+    shift = (y[:, None].astype(np.float32) - n_classes / 2) * 8
+    x = np.clip(x + shift[..., None, None], 0, 255)
+    return x.astype(np.float32), y
+
+
+def _cifar_trainer(module, **kw):
+    from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig
+    from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
+    cfg = dict(batch_size=CIFAR_BATCH, optimizer="momentum",
+               learning_rate=0.01, log_every=1, prefetch_depth=2,
+               preprocess=DevicePreprocess(**CIFAR_SPEC))
+    return Trainer(module, TrainConfig(**{**cfg, **kw}))
+
+
+def _cifar_checks(card: str, init: dict, batch) -> None:
+    """Correctness on the card: the float32 ConvNet against the same
+    weights on the CPU (both nodes, 16 rows through
+    center_128), the bf16 forward against the float32 one, and the first
+    training step's loss in bf16 against float32."""
+    import torch
+
+    from mmlspark_tpu_torch.models.convnet import ConvNetCifar
+    from mmlspark_tpu_torch.models.zoo import get_model
+    rows = np.random.default_rng(1).integers(0, 256, (16, 32, 32, 3),
+                                             dtype=np.uint8)
+    x_cpu = torch.from_numpy(rows).float() - 128.0
+    x = x_cpu.cuda()
+    f32_vs_cpu = {}
+    card_model = get_model("ConvNet_CIFAR10", seed=0,
+                           dtype=torch.float32).module.eval()
+    cpu_model = ConvNetCifar(widths=card_model.widths,
+                             dense_width=card_model.dense_width,
+                             dtype=torch.float32, device="cpu").eval()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()})
+    with torch.no_grad():
+        for node in ("features", "logits"):
+            got = card_model(x, output=node).cpu()
+            want = cpu_model(x_cpu, output=node)
+            width = (card_model.dense_width if node == "features"
+                     else CIFAR_CLASSES)
+            check(tuple(got.shape) == (16, width), f"{node} shape")
+            f32_vs_cpu[node] = _relative_gap(got, want)
+    del card_model, cpu_model
+    f32 = get_model("ConvNet_CIFAR10", seed=0, dtype=torch.float32).module
+    bf16 = get_model("ConvNet_CIFAR10", seed=0).module
+    f32.load_state_dict(init)
+    bf16.load_state_dict(init)
+    with torch.no_grad():
+        bf16_vs_f32 = {node: _relative_gap(bf16.eval()(x, output=node),
+                                           f32.eval()(x, output=node))
+                       for node in ("features", "logits")}
+    dx, dy, dw = (torch.from_numpy(a).cuda() for a in batch)
+    loss_f32 = float(_cifar_trainer(f32).train_step(dx, dy, dw))
+    loss_bf16 = float(_cifar_trainer(bf16).train_step(dx, dy, dw))
+    del f32, bf16
+    out = {"phase": "cifar", "part": "checks", "card": card,
+           "f32_card_vs_cpu": f32_vs_cpu, "f32_tol": CIFAR_F32_TOL,
+           "bf16_vs_f32": bf16_vs_f32, "bf16_tol": CIFAR_BF16_TOL,
+           "first_step_loss": {"float32": loss_f32, "bf16": loss_bf16,
+                               "gap": abs(loss_bf16 - loss_f32),
+                               "tol": CIFAR_LOSS_TOL},
+           "tolerances": "max |error| over max |reference| of each output"}
+    emit(out)
+    check(max(f32_vs_cpu.values()) <= CIFAR_F32_TOL,
+          f"float32 ConvNet on the card vs the CPU: {f32_vs_cpu}")
+    check(max(bf16_vs_f32.values()) <= CIFAR_BF16_TOL,
+          f"bf16 ConvNet vs float32 on the card: {bf16_vs_f32}")
+    check(np.isfinite(loss_bf16) and abs(loss_bf16 - loss_f32)
+          <= CIFAR_LOSS_TOL,
+          f"first-step loss bf16 {loss_bf16} vs float32 {loss_f32}")
+
+
+def _cifar_score(card: str, bundle) -> None:
+    """Featurize and score CIFAR_SCORE_ROWS flat uint8 rows through
+    TorchModel at minibatch CIFAR_BATCH: rows/s (best of 2 after a warm
+    call) for each node, and one traced minibatch's busy and idle."""
+    import torch
+
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    flat = np.random.default_rng(2).integers(
+        0, 256, (CIFAR_SCORE_ROWS, 32 * 32 * 3), dtype=np.uint8)
+    table = DataTable({"image": list(flat)})
+    out = {"phase": "cifar", "part": "score", "card": card,
+           "rows": CIFAR_SCORE_ROWS, "minibatch": CIFAR_BATCH}
+    _reset_port_kernel_launches()
+    for node in ("features", "logits"):
+        model = TorchModel(model=bundle, input_col="image",
+                           output_col="out", output_node=node,
+                           minibatch_size=CIFAR_BATCH)
+        model.transform(table)                      # warm
+        best, result = None, None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            result = model.transform(table)
+            dt = time.perf_counter() - t0
+            best = dt if best is None else min(best, dt)
+        got = np.stack(result["out"])
+        width = (bundle.module.dense_width if node == "features"
+                 else CIFAR_CLASSES)
+        check(got.shape == (CIFAR_SCORE_ROWS, width),
+              f"{node} shape {got.shape}")
+        check(bool(np.isfinite(got).all()), f"non-finite {node}")
+        out[node] = {"shape": list(got.shape), "best_s": best,
+                     "rows_per_s": CIFAR_SCORE_ROWS / best}
+    one = DataTable({"image": list(flat[:CIFAR_BATCH])})
+    wall = min(_synced_ms(lambda: model.transform(one), 1)
+               for _ in range(3))
+    traced = _device_trace(lambda: model.transform(one))
+    traced["wall_ms"] = wall
+    traced["device_idle_share_of_wall"] = 1 - traced["device_busy_ms"] / wall
+    out["one_minibatch_logits"] = traced
+    out["port_kernel_launches"] = _port_kernel_launches()
+    emit(out)
+    check(not any(out["port_kernel_launches"].values()),
+          f"scoring launched a kernel of the port: "
+          f"{out['port_kernel_launches']}")
+    torch.cuda.empty_cache()
+
+
+def _cifar_eval_and_serve(card: str) -> None:
+    """Train the ConvNet on a learnable task through the input scoring
+    gives it, score the held-out rows through TorchModel (accuracy and
+    confusion matrix), then serve the same bundle through ModelServer."""
+    import torch
+
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.ml.metrics import confusion_matrix
+    from mmlspark_tpu_torch.models.torch_model import TorchModel
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.serve.config import ServeConfig
+    from mmlspark_tpu_torch.serve.server import ModelServer
+    from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
+
+    n = CIFAR_EVAL_TRAIN + CIFAR_EVAL_TEST
+    x, y = _class_blobs(n, (32, 32, 3), CIFAR_CLASSES, seed=0)
+    x = np.round(x).astype(np.uint8)
+    bundle = get_model("ConvNet_CIFAR10", seed=0)
+    trainer = _cifar_trainer(
+        bundle.module, batch_size=CIFAR_EVAL_BATCH, epochs=CIFAR_EVAL_EPOCHS,
+        optimizer="adam", learning_rate=CIFAR_EVAL_LR, input_scale=1.0,
+        preprocess=DevicePreprocess(mean=(128.0,) * 3))
+    t0 = time.perf_counter()
+    trainer.fit_arrays(x[:CIFAR_EVAL_TRAIN], y[:CIFAR_EVAL_TRAIN])
+    fit_s = time.perf_counter() - t0
+    losses = trainer.history
+    del trainer
+    flat = x[CIFAR_EVAL_TRAIN:].reshape(CIFAR_EVAL_TEST, -1)
+    yte = y[CIFAR_EVAL_TRAIN:]
+    model = TorchModel(model=bundle, input_col="image", output_col="out",
+                       minibatch_size=CIFAR_BATCH)
+    logits = np.stack(model.transform(DataTable({"image": list(flat)}))
+                      ["out"])
+    pred = logits.argmax(-1)
+    cm = confusion_matrix(yte, pred, CIFAR_CLASSES)
+    quarter = max(1, len(losses) // 4)
+    first_q = float(np.mean(losses[:quarter]))
+    last_q = float(np.mean(losses[-quarter:]))
+    emit({"phase": "cifar", "part": "train_then_evaluate", "card": card,
+          "train_rows": CIFAR_EVAL_TRAIN, "test_rows": CIFAR_EVAL_TEST,
+          "batch": CIFAR_EVAL_BATCH, "epochs": CIFAR_EVAL_EPOCHS,
+          "optimizer": f"adam {CIFAR_EVAL_LR}",
+          "input": "input_scale 1, mean 128 "
+          "(center_128)", "fit_s": fit_s, "losses": losses,
+          "loss_first_quarter": first_q, "loss_last_quarter": last_q,
+          "accuracy": float((pred == yte).mean()),
+          "min_accuracy": CIFAR_EVAL_MIN_ACCURACY,
+          "confusion_matrix": cm.tolist()})
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(last_q < first_q, f"the loss did not fall: {first_q} -> {last_q}")
+    check(int(cm.sum()) == CIFAR_EVAL_TEST, f"confusion matrix {cm}")
+    accuracy = float((pred == yte).mean())
+    check(accuracy >= CIFAR_EVAL_MIN_ACCURACY,
+          f"held-out accuracy {accuracy} < {CIFAR_EVAL_MIN_ACCURACY}")
+
+    # serving: single-row requests from a few clients, each answer held
+    # against TorchModel's row (minibatch CIFAR_BATCH) for the same image
+    rows = list(flat[:CIFAR_SERVE_REQUESTS])
+    answers: dict[int, np.ndarray] = {}
+    latencies: list[float] = []
+    errors: list[BaseException] = []
+    lock = threading.Lock()
+
+    def client(idx: int, server: ModelServer) -> None:
+        try:
+            for r in range(idx, len(rows), CIFAR_SERVE_CLIENTS):
+                t = time.perf_counter()
+                got = server.predict("cifar", DataTable({"input": [rows[r]]}),
+                                     timeout=120)
+                with lock:
+                    answers[r] = np.stack(got["scores"])[0]
+                    latencies.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    server = ModelServer(ServeConfig(buckets=CIFAR_SERVE_BUCKETS))
+    try:
+        server.add_model("cifar", bundle,
+                         example=DataTable({"input": rows[:1]}))
+        t_serve = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i, server))
+                   for i in range(CIFAR_SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        serve_s = time.perf_counter() - t_serve
+        snap = server.snapshot()["cifar"]
+    finally:
+        server.close()
+    if errors:
+        raise errors[0]
+    check(len(answers) == len(rows), f"{len(answers)} answers for "
+                                     f"{len(rows)} requests")
+    want = logits[:len(rows)]
+    got = np.stack([answers[r] for r in range(len(rows))])
+    gap = _relative_gap(torch.from_numpy(got), torch.from_numpy(want))
+    lat = np.asarray(latencies)
+    emit({"phase": "cifar", "part": "serve", "card": card,
+          "requests": len(rows), "clients": CIFAR_SERVE_CLIENTS,
+          "buckets": list(CIFAR_SERVE_BUCKETS), "batches": snap["batches"],
+          "occupancy_by_bucket": snap["occupancy_by_bucket"],
+          "requests_per_s": len(rows) / serve_s,
+          "latency_p50_ms": float(np.percentile(lat, 50)),
+          "latency_p99_ms": float(np.percentile(lat, 99)),
+          "max_err_vs_torch_model": gap, "tol": CIFAR_SERVE_TOL,
+          "tolerance": "max |error| over max |TorchModel logit|",
+          "same_argmax": float((got.argmax(-1) == want.argmax(-1)).mean())})
+    check(snap["completed"] == len(rows) and snap["failed"] == 0,
+          f"serving stats {snap}")
+    check(gap <= CIFAR_SERVE_TOL,
+          f"served logits vs TorchModel's: {gap} > {CIFAR_SERVE_TOL}")
+    del bundle, model
+    torch.cuda.empty_cache()
+
+
+def phase_cifar(card: str) -> None:
+    """The CIFAR-10 ConvNet: (a) the headline training run through
+    ``Trainer.fit_arrays`` with one traced step, (b) its correctness on
+    the card, (c) featurize and score through TorchModel, (d) train then
+    evaluate, (e) serve. The path launches none of the port's kernels
+    (its convs, GEMMs and pooling are PyTorch's); the run fails if it
+    launches one."""
+    import torch
+
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.train.loop import _batches
+
+    t0 = time.perf_counter()
+    rows = CIFAR_STEPS * CIFAR_BATCH
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (rows, 32, 32, 3), dtype=np.uint8)
+    y = rng.integers(0, CIFAR_CLASSES, rows).astype(np.int64)
+    bundle = get_model("ConvNet_CIFAR10", seed=0)
+    module = bundle.module
+    init = {k: v.detach().clone() for k, v in module.state_dict().items()}
+    trainer = _cifar_trainer(module)
+    setup_s = time.perf_counter() - t0
+    flops = convnet_forward_flops(module.widths, module.dense_width,
+                                  module.num_classes)
+
+    # the main path: launch counts from 0 just before, read just after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_port_kernel_launches()
+    t_fit = time.perf_counter()
+    trainer.fit_arrays(x, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    launches = _port_kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(trainer.global_step == CIFAR_STEPS,
+          f"{trainer.global_step} steps, expected {CIFAR_STEPS}")
+    check(len(trainer.history) == CIFAR_STEPS
+          and all(np.isfinite(v) for v in trainer.history),
+          f"losses {trainer.history}")
+    check(launches["fused_resize_norm"] == 0 and not any(launches.values()),
+          f"the CIFAR step launched a kernel of the port: {launches}")
+    step_ms = trainer.step_ms
+    after_first = step_ms[1:]
+    step_med = statistics.median(after_first)
+
+    # one step's wall (host clock, synchronised) and one traced step
+    first = next(_batches(x, y, CIFAR_BATCH, trainer.cfg.seed))
+    dx, dy, dw = (torch.from_numpy(a).cuda() for a in first)
+    wall = _synced_ms(lambda: trainer.train_step(dx, dy, dw), 5)
+    traced = _device_trace(lambda: trainer.train_step(dx, dy, dw))
+    traced["wall_ms"] = wall
+    traced["device_idle_share_of_wall"] = 1 - traced["device_busy_ms"] / wall
+    traced["images_per_s"] = CIFAR_BATCH / wall * 1e3
+    stats = trainer.input_stats
+    emit({"phase": "cifar", "part": "train", "model": "ConvNet_CIFAR10",
+          "card": card, "widths": list(module.widths),
+          "dense_width": module.dense_width, "dtype": "bfloat16",
+          "rows": rows, "batch": CIFAR_BATCH, "steps": CIFAR_STEPS,
+          "preprocess": CIFAR_SPEC, "optimizer": "momentum 0.01",
+          "losses": list(trainer.history), "setup_s": setup_s,
+          "fit_wall_s": fit_s, "step_ms": step_ms,
+          "step_ms_median_after_first": step_med,
+          "images_per_s_after_first": CIFAR_BATCH * len(after_first)
+          / (sum(after_first) / 1e3),
+          "forward_gflop_per_image": flops / 1e9,
+          "mfu_bf16": 3 * flops * CIFAR_BATCH / (step_med / 1e3)
+          / PEAK_OPS_S["bfloat16"],
+          "input_bound_fraction": stats["input_bound_fraction"],
+          "input_wait_s": stats["input_wait_s"],
+          "peak_memory_gb": peak_gb, "port_kernel_launches": launches,
+          "one_step": traced})
+    del trainer
+    torch.cuda.empty_cache()
+
+    _cifar_checks(card, init, first)
+    torch.cuda.empty_cache()
+    _cifar_score(card, bundle)
+    del bundle, module
+    _cifar_eval_and_serve(card)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -2971,6 +3463,9 @@ def main() -> int:
                 "autograd_ms": bwd["autograd_ms"],
                 "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
                 "tc_bound_ms": bwd["tc_bound_ms"], "library_ms": None})
+    if "cifar" in phases:
+        phase_cifar(card)
+        torch.cuda.empty_cache()
     if kernels:
         emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -56,6 +56,14 @@ def register_preprocess(name: str):
     return deco
 
 
+@register_preprocess("center_128")
+def _center_128(x):
+    # CIFAR CNTK models center pixels around 0 by subtracting the mean
+    # image; a constant 128 shift is the stand-in notebook 301's pipeline
+    # uses
+    return x - 128.0
+
+
 @register_preprocess("imagenet_norm")
 def _imagenet_norm(x):
     # standard ImageNet channel statistics on 0-255 RGB input

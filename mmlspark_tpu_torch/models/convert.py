@@ -1,4 +1,4 @@
-"""Weight conversion from the JAX package's ViT, ResNet and
+"""Weight conversion from the JAX package's ViT, ResNet, ConvNet and
 TransformerTagger param trees.
 
 ``resnet_state_dict_from_flax(params)`` takes the flax ``ResNet`` params
@@ -20,6 +20,14 @@ as nested dicts of numpy arrays and returns the ``state_dict`` of
   ``[H·dh, D]`` before the transpose;
 * the patch conv kernel HWIO becomes OIHW;
 * LayerNorm ``scale``/``bias`` become ``weight``/``bias``.
+
+``convnet_state_dict_from_flax(params)`` takes the flax ``ConvNetCifar``
+params (``conv{i}a``, ``conv{i}b``, ``dense0``, ``head``), of either stem,
+and returns the ``state_dict`` of
+:class:`mmlspark_tpu_torch.models.convnet.ConvNetCifar`: conv kernels
+HWIO become OIHW; dense kernels ``[in, out]`` become ``[out, in]``. The
+``dense0`` kernel's input axis stays in flax's flatten order, (h, w, C)
+over the NHWC activation, which is the order the port flattens in.
 
 ``sequence_state_dict_from_flax(params)`` takes the flax
 ``TransformerTagger`` params (``embed/embedding``, ``pos_embed``, per layer
@@ -103,6 +111,20 @@ def resnet_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
             if conv in block:
                 _conv(block[conv], f"blocks.{name}.{conv}", out)
                 _group_norm(block[norm], f"blocks.{name}.{norm}", out)
+    _dense(params["head"], "head", out)
+    return out
+
+
+def convnet_state_dict_from_flax(params: Mapping
+                                 ) -> dict[str, torch.Tensor]:
+    """The port's ConvNetCifar ``state_dict`` (float32 CPU tensors) from
+    flax params. A patch-stem ``PatchConv3x3`` keeps the direct conv's
+    names and ``(3, 3, cin, F)`` layout, so both stems convert alike."""
+    out: dict[str, torch.Tensor] = {}
+    for name in sorted(k for k in params if k.startswith("conv")):
+        _conv(params[name], name, out)
+        out[f"{name}.bias"] = _t(params[name]["bias"])
+    _dense(params["dense0"], "dense0", out)
     _dense(params["head"], "head", out)
     return out
 

@@ -62,14 +62,17 @@ def _pad_nhwc(x: torch.Tensor, ph: tuple, pw: tuple,
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias over NHWC input with ``SAME`` padding:
-    float32 weight ``[out, in, k, k]``, cast with the input to ``dtype``."""
+    """flax ``nn.Conv`` over NHWC input with ``SAME`` padding: float32
+    weight ``[out, in, k, k]`` (and, with ``bias=True``, a float32 bias
+    ``[out]`` fused into the conv), cast with the input to ``dtype``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k,
                                                device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if bias else None)
         self.k, self.stride, self.compute_dtype = k, stride, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +86,8 @@ class Conv(nn.Module):
             x = _pad_nhwc(x, ph, pw)
             padding = (0, 0)
         w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
                      padding=padding)
         return y.permute(0, 2, 3, 1)
 

@@ -14,6 +14,7 @@ import torch
 
 from mmlspark_tpu_torch.device import resolve_device
 from mmlspark_tpu_torch.models.bundle import ModelBundle
+from mmlspark_tpu_torch.models.convnet import ConvNetCifar, init_convnet_
 from mmlspark_tpu_torch.models.resnet import (
     ResNet,
     init_resnet_,
@@ -93,6 +94,20 @@ def resnet_small_bundle(num_classes: int = 10, input_size: int = 32,
     return ModelBundle(module, (input_size, input_size, 3),
                        ResNet.OUTPUT_NAMES, preprocess="imagenet_norm",
                        name="ResNet_Small")
+
+
+@register_model("ConvNet_CIFAR10")
+def conv_net_cifar_bundle(num_classes: int = 10, seed: int = 0,
+                          device: Any = None, **kw) -> ModelBundle:
+    """The CIFAR-10 ConvNet (the repo's headline workload) at full width
+    by default (widths (128, 256, 512), dense 512), bf16 compute, f32
+    master weights; ``kw`` takes ``widths``, ``dense_width`` and ``dtype``."""
+    dev = resolve_device(device)
+    module = ConvNetCifar(num_classes=num_classes, device=dev, **kw)
+    init_convnet_(module, _generator(seed, dev))
+    return ModelBundle(module, ConvNetCifar.INPUT_SPEC,
+                       ConvNetCifar.OUTPUT_NAMES,
+                       preprocess="center_128", name="ConvNet_CIFAR10")
 
 
 def get_model(name: str, **kwargs: Any) -> ModelBundle:

@@ -107,6 +107,45 @@ def test_training_on_cpu_loads_no_jax_module():
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_cifar_train_score_and_evaluate_on_cpu_load_no_jax_module():
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from mmlspark_tpu_torch.data.table import DataTable
+        from mmlspark_tpu_torch.ml.metrics import confusion_matrix
+        from mmlspark_tpu_torch.models.torch_model import TorchModel
+        from mmlspark_tpu_torch.models.zoo import get_model
+        from mmlspark_tpu_torch.train.loop import Trainer, TrainConfig
+        from mmlspark_tpu_torch.train.preprocess import DevicePreprocess
+        bundle = get_model("ConvNet_CIFAR10", device="cpu", widths=(4, 8),
+                           dense_width=16)
+        cfg = TrainConfig(batch_size=4, optimizer="momentum", log_every=1,
+                          device="cpu",
+                          preprocess=DevicePreprocess(
+                              crop_pad=4, flip_lr=True, brightness=0.1,
+                              contrast=(0.9, 1.1)))
+        x = np.zeros((6, 32, 32, 3), np.uint8)
+        y = np.zeros(6, np.int64)
+        trainer = Trainer(bundle.module, cfg).fit_arrays(x, y)
+        assert len(trainer.history) == 2
+        model = TorchModel(model=bundle, input_col="image",
+                           output_col="scores", device="cpu")
+        out = model.transform(DataTable({"image": list(x.reshape(6, -1))}))
+        pred = np.stack(out["scores"]).argmax(-1)
+        assert confusion_matrix(y, pred, 10).sum() == 6
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_generation_on_cpu_loads_no_jax_module():
     script = textwrap.dedent("""
         import sys

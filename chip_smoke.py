@@ -142,11 +142,27 @@ Phases, each printing JSON lines:
     and confusion matrix); (e) that bundle served through
     ``ModelServer.add_model`` to single-row requests from 4 clients,
     each answer held against ``TorchModel``'s;
-12. **kernels** — one line listing every ported kernel.
+12. **featurize** — columnar pipelines (ROADMAP A6): 2048 uint8 BGR
+    images of 240×320 (numpy seed 0) through ``Pipeline([ImageTransformer
+    resize 256² → crop 224² → flip, ImageFeaturizer(cut_output_layers=1,
+    minibatch_size=64)])`` over full-width ResNet-50 GroupNorm (bf16,
+    seed-0 weights), fitted and transformed as one fused segment: one
+    upload of the raw uint8 batch and one fetch round (the resized image
+    column and the 2048-d features) a minibatch, 53 K5 launches a
+    minibatch and no plain GroupNorm call on the card; the fused features
+    against ImageFeaturizer alone over the same resized images, the K5
+    route against the plain GroupNorm and 8 rows in float32 on the card
+    against the CPU; rows/s fused and stage by stage, one traced
+    minibatch (busy by kind, K5's share, idle) and peak memory; then
+    example 302's pipeline (resize, crop, flip, UnrollImage) on uniform
+    64×96 images as one segment, against the host route;
+13. **kernels** — one line listing every ported kernel (K5's entry with
+    its launches on the featurize path as ``featurize_launches``).
 
 Phases run in the order attention, serve, decode_attention, generate,
-group_norm, resize, train, block_update, sp_train, cifar. Then the card's name
-and power limit, and last, when every phase ran, the result line
+group_norm, resize, train, block_update, sp_train, cifar, featurize. Then
+the card's name and power limit, and last, when every phase ran, the
+result line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without it, as does a machine without CUDA or a directory without the
 package.
@@ -169,7 +185,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PHASES = ("attention", "serve", "decode_attention", "generate",
           "group_norm", "resize", "train", "block_update", "sp_train",
-          "cifar")
+          "cifar", "featurize")
 DEV = "cuda"
 
 # the card's published peaks (H100 SXM data sheet, dense): bytes/s of
@@ -438,6 +454,38 @@ CIFAR_LOSS_TOL = 1e-3
 # algorithms and round other sums; 1e-2 is one to two bf16 steps of the
 # largest logit (measured 1.3e-3)
 CIFAR_SERVE_TOL = 1e-2
+
+# featurize (ROADMAP A6): a table of FEAT_ROWS uint8 BGR images of
+# FEAT_SRC from numpy seed 0 through the pipeline resize → crop → flip →
+# ImageFeaturizer (ResNet-50 GroupNorm at full width, bf16, seed-0
+# weights, cut_output_layers 1: the 2048-d pooled features), fitted and
+# transformed, at minibatch FEAT_MINIBATCH: one fused segment, so a
+# minibatch is one upload of the raw pixels and one fetch round (the
+# resized image column and the features). Cut: 2048 rows
+FEAT_MODEL = "ResNet50"
+FEAT_ROWS, FEAT_SRC, FEAT_MINIBATCH = 2048, (240, 320), 64
+FEAT_RESIZE = (256, 256)
+FEAT_CROP = dict(x=16, y=16, height=224, width=224)
+# bf16 features through two routes that compute the same thing: the fused
+# run against ImageFeaturizer alone over the fused run's own resized
+# images (the same minibatches, so the same operations), and the K5 route
+# against the plain GroupNorm (gn_impl="torch"), where a GroupNorm output
+# one bf16 step apart changes what the following bf16 convs round and 49
+# later layers carry that on. Each over the largest feature magnitude
+FEAT_TOL = 2e-2
+# FEAT_F32_ROWS of the resized images through the float32 ResNet-50 on the
+# card and through the same weights on the CPU: both float32 with TF32
+# off (device.py), differing in the convs' summation order and in K5's
+# against the plain GroupNorm's (GN_TOL_F32 of unit-spread outputs at
+# most), which 53 normalised sites carry to the pooled features; 1e-3 of
+# the largest magnitude is ten times GN_TOL_F32
+FEAT_F32_ROWS, FEAT_F32_TOL = 8, 1e-3
+# rows through the plain GroupNorm route, for the kernel-vs-plain check
+FEAT_PLAIN_ROWS = 512
+# example 302's pipeline (examples/image_transforms_302.py:38-50) on
+# FEAT_302_ROWS uniform 64x96 images: resize 60x60, crop 48x48, flip,
+# UnrollImage(scale=1/255), one fused segment at the default minibatch
+FEAT_302_ROWS, FEAT_302_SRC = 256, (64, 96)
 
 
 def emit(obj: dict) -> None:
@@ -1199,23 +1247,41 @@ def _set_attention_impl(module, impl: str) -> None:
             m.impl = impl
 
 
-def _vit_forward_profile(model, x) -> dict:
-    """One ViT forward at ``x``'s batch under ``torch.profiler``, after a
+def _stage_forward(model, x):
+    """The model stage's device op on ``x`` (a batch on the card), as the
+    planner runs it: a callable for one forward."""
+    import torch
+
+    from mmlspark_tpu_torch.core import plan
+    from mmlspark_tpu_torch.core.stage import ArrayMeta
+    op = model.device_fn(ArrayMeta(tuple(x.shape[1:]),
+                                   str(x.dtype).split(".")[-1]))
+    params = plan.place(op.params, x.device)
+
+    def forward():
+        with torch.inference_mode():
+            return op.fn(params, x)
+
+    return forward
+
+
+def _vit_forward_profile(forward) -> dict:
+    """One ViT forward (``forward()``) under ``torch.profiler``, after a
     warm one: host wall (synchronised), the device's busy time and its
     idle share of the wall, K1's kernels (time and count) and their share
     of the busy time, and the busiest kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model.device_forward(x)
+    forward()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.device_forward(x)
+    forward()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model.device_forward(x)
+        forward()
         torch.cuda.synchronize()
     device = [(e.key, e.self_device_time_total / 1e3, e.count)
               for e in prof.key_averages()
@@ -1312,9 +1378,10 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
     # kernel (the events around a forward also see the host's launch gaps
     # once it has more launches to make than the busy-wait covers)
     x = torch.from_numpy(images[:max(SERVE_BUCKETS)]).cuda()
-    forward_ms = time_ms(lambda: model.device_forward(x), reps=20)
+    forward = _stage_forward(model, x)
+    forward_ms = time_ms(forward, reps=20)
     launched = fa.launches
-    profiled = _vit_forward_profile(model, x)
+    profiled = _vit_forward_profile(forward)
     check(fa.launches == launched + 36,
           "the three forwards of the profile did not launch K1 12 times "
           "each")
@@ -1322,7 +1389,7 @@ def phase_serve(card: str, kernel_ms: float | None) -> int:
     # the same rows through the same weights with the plain attention
     _set_attention_impl(bundle.module, "flash_torch")
     launched = fa.launches
-    plain_forward_ms = time_ms(lambda: model.device_forward(x), reps=20)
+    plain_forward_ms = time_ms(forward, reps=20)
     ref = np.stack(model.transform(
         DataTable({"image": list(images)}))["scores"])
     check(fa.launches == launched, "the plain path launched the kernel")
@@ -2974,10 +3041,11 @@ def _trace_kind(key: str) -> str:
                  if any(w in key for w in words)), "other")
 
 
-def _device_trace(fn) -> dict:
+def _device_trace(fn, names: tuple = ()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's busy time
     (kernels and copies) in all and by kind (TRACE_KINDS), the kernels
-    launched and the busiest ones."""
+    launched and the busiest ones; with ``names``, the time and count of
+    the kernels whose name holds each."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2993,11 +3061,17 @@ def _device_trace(fn) -> dict:
     by_kind = {kind: 0.0 for kind, _ in TRACE_KINDS + (("other", ()),)}
     for key, ms, _ in device:
         by_kind[_trace_kind(key)] += ms
-    return {"device_busy_ms": sum(ms for _, ms, _ in device),
-            "busy_ms_by_kind": by_kind,
-            "kernels_launched": sum(n for _, _, n in device),
-            "top_kernels": [[key[:80], ms, n] for key, ms, n in
-                            sorted(device, key=lambda d: -d[1])[:8]]}
+    out = {"device_busy_ms": sum(ms for _, ms, _ in device),
+           "busy_ms_by_kind": by_kind,
+           "kernels_launched": sum(n for _, _, n in device),
+           "top_kernels": [[key[:80], ms, n] for key, ms, n in
+                           sorted(device, key=lambda d: -d[1])[:8]]}
+    if names:
+        out["kernels_by_name"] = {
+            name: [sum(ms for key, ms, _ in device if name in key),
+                   sum(n for key, _, n in device if name in key)]
+            for name in names}
+    return out
 
 
 def _synced_ms(fn, reps: int) -> float:
@@ -3343,6 +3417,289 @@ def phase_cifar(card: str) -> None:
     _cifar_eval_and_serve(card)
 
 
+def _plain_group_norm_counter():
+    """Count the calls of the plain GroupNorm routes on CUDA tensors (the
+    kernel route must make none); returns ``(counts, restore)``."""
+    import torch
+
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    plain = {name: getattr(gn_op, name)
+             for name in ("group_norm_reference", "group_norm_backward",
+                          "group_norm_backward_reference")}
+    counts = dict.fromkeys(plain, 0)
+
+    def counted(name):
+        def call(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                counts[name] += 1
+            return plain[name](*args, **kwargs)
+        return call
+
+    for name in plain:
+        setattr(gn_op, name, counted(name))
+
+    def restore() -> None:
+        for name, fn in plain.items():
+            setattr(gn_op, name, fn)
+
+    return counts, restore
+
+
+def _image_stack(col) -> np.ndarray:
+    return np.stack([v["data"] for v in col])
+
+
+def _feature_gap(got: np.ndarray, want: np.ndarray) -> float:
+    import torch
+    return _relative_gap(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def _one_segment(plan, stages: list, table, want: list):
+    """The fused segment ``plan.describe_plan`` must show as
+    ``[("device", want)]``; fails with the planner's reasons when the
+    stages do not form it."""
+    segments = [(kind, [type(s).__name__ for s in ss])
+                for kind, ss in plan.describe_plan(stages, table)]
+    reasons: list = []
+    seg = plan.collect_segment(stages, 0,
+                               lambda col: plan._entry_meta(table, col),
+                               explain=reasons)
+    check(seg is not None and segments == [("device", want)],
+          f"plan {segments}, expected one device segment of {want}: "
+          f"{reasons}")
+    return seg, segments
+
+
+def _example_302(card: str) -> None:
+    """Example 302's pipeline on uniform images: one fused segment, one
+    upload a minibatch, and the host route's answers (crop and flip
+    exact, resize within one count)."""
+    from mmlspark_tpu_torch.core import plan
+    from mmlspark_tpu_torch.core.pipeline import Pipeline
+    from mmlspark_tpu_torch.core.schema import make_image
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.stages.image import ImageTransformer, UnrollImage
+    pixels = np.random.default_rng(1).integers(
+        0, 256, (FEAT_302_ROWS,) + FEAT_302_SRC + (3,), dtype=np.uint8)
+    table = DataTable({"image": [make_image(f"img{i:04d}.png", p)
+                                 for i, p in enumerate(pixels)]})
+    stages = [ImageTransformer(device=DEV).resize(height=60, width=60)
+              .crop(x=0, y=0, height=48, width=48).flip(flip_code=1),
+              UnrollImage(input_col="image", output_col="features",
+                          scale=1 / 255.0)]
+    model = Pipeline(stages).fit(table)
+    seg, segments = _one_segment(plan, model.stages, table,
+                                 ["ImageTransformer", "UnrollImage"])
+    with plan.count_crossings() as crossings:
+        fused = model.transform(table)
+    host = stages[1].transform(stages[0].transform(table))
+    image_gap = int(np.abs(_image_stack(fused["image"]).astype(int)
+                           - _image_stack(host["image"]).astype(int)).max())
+    feature_gap = float(np.abs(np.stack(fused["features"])
+                               - np.stack(host["features"])).max())
+    n_mb = plan.predict_segment_minibatches(seg, FEAT_302_ROWS)
+    emit({"phase": "featurize", "part": "example_302", "card": card,
+          "rows": FEAT_302_ROWS, "source": list(FEAT_302_SRC),
+          "plan": segments, "minibatches": n_mb,
+          "uploads": crossings.uploads, "fetches": crossings.fetches,
+          "max_image_gap_vs_host": image_gap,
+          "max_feature_gap_vs_host": feature_gap,
+          "tolerance": "images within 1 count of the host route (resize "
+          "rounding), features within 1/255 + 1e-6"})
+    check(n_mb == -(-FEAT_302_ROWS // plan.DEFAULT_MINIBATCH),
+          f"example 302: {n_mb} minibatches predicted")
+    check(crossings.uploads == n_mb and crossings.fetches == n_mb,
+          f"example 302: {crossings.uploads} uploads, {crossings.fetches} "
+          f"fetches for {n_mb} minibatches")
+    check(image_gap <= 1 and feature_gap <= 1 / 255.0 + 1e-6,
+          f"example 302 vs the host route: images {image_gap}, features "
+          f"{feature_gap}")
+
+
+def phase_featurize(card: str) -> int:
+    """Featurize FEAT_ROWS images through Pipeline([ImageTransformer,
+    ImageFeaturizer]) over ResNet-50 GroupNorm as one fused segment;
+    returns K5's launches on that run. Checks one segment, one upload of
+    the raw uint8 batch and one fetch round a minibatch, 53 K5 launches a
+    minibatch and no plain GroupNorm call on the card; the fused features
+    against ImageFeaturizer alone over the same resized images, the K5
+    route against the plain GroupNorm, and float32 on the card against
+    the CPU; then rows/s fused and stage by stage, one traced minibatch
+    and peak memory; then example 302's pipeline."""
+    import torch
+
+    from mmlspark_tpu_torch.core import plan
+    from mmlspark_tpu_torch.core.pipeline import Pipeline
+    from mmlspark_tpu_torch.core.schema import make_image
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.models.bundle import ModelBundle, meta_copy
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.models.resnet import gn_sites
+    from mmlspark_tpu_torch.models.zoo import get_model
+    from mmlspark_tpu_torch.ops import group_norm as gn_op
+    from mmlspark_tpu_torch.stages.image import ImageTransformer
+
+    t_phase = time.perf_counter()
+    pixels = np.random.default_rng(0).integers(
+        0, 256, (FEAT_ROWS,) + FEAT_SRC + (3,), dtype=np.uint8)
+    table = DataTable({"image": [make_image(f"img{i:05d}.jpg", p)
+                                 for i, p in enumerate(pixels)]})
+    featurizer = ImageFeaturizer(
+        cut_output_layers=1, minibatch_size=FEAT_MINIBATCH,
+        device=DEV).set_model_by_name(FEAT_MODEL, seed=0)
+    bundle = featurizer.model
+    sites = gn_sites(bundle.module)
+    transformer = (ImageTransformer(device=DEV).resize(*FEAT_RESIZE)
+                   .crop(**FEAT_CROP).flip(1))
+    model = Pipeline([transformer, featurizer]).fit(table)
+    seg, segments = _one_segment(plan, model.stages, table,
+                                 ["ImageTransformer", "ImageFeaturizer"])
+    n_mb = plan.predict_segment_minibatches(seg, FEAT_ROWS)
+    check(n_mb == -(-FEAT_ROWS // FEAT_MINIBATCH),
+          f"{n_mb} minibatches predicted for {FEAT_ROWS} rows at "
+          f"{FEAT_MINIBATCH}")
+    setup_s = time.perf_counter() - t_phase
+
+    # the main path: launch counts from 0 just before, read just after
+    counts, restore = _plain_group_norm_counter()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_port_kernel_launches()
+        with plan.count_crossings() as crossings:
+            t_main = time.perf_counter()
+            fused = model.transform(table)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t_main
+        launches = _port_kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        restore()
+    features = np.stack(fused["features"])
+    images = _image_stack(fused["image"])
+    width = bundle.module.head.in_features
+    check(features.shape == (FEAT_ROWS, width)
+          and bool(np.isfinite(features).all()),
+          f"features {features.shape}, finite {np.isfinite(features).all()}")
+    check(images.shape == (FEAT_ROWS, FEAT_CROP["height"],
+                           FEAT_CROP["width"], 3)
+          and fused["image"][1]["path"] == "img00001.jpg",
+          f"resized image column {images.shape}")
+    check(crossings.uploads == n_mb and crossings.fetches == n_mb,
+          f"{crossings.uploads} uploads and {crossings.fetches} fetch "
+          f"rounds for {n_mb} minibatches")
+    check(crossings.upload_shapes == {(FEAT_MINIBATCH,) + FEAT_SRC + (3,)},
+          f"uploaded shapes {crossings.upload_shapes}: expected the raw "
+          "uint8 batch")
+    check(launches["group_norm"] == sites * n_mb,
+          f"{launches['group_norm']} K5 launches for {n_mb} minibatches, "
+          f"expected {sites} a minibatch")
+    check(not any(v for k, v in launches.items() if k != "group_norm"),
+          f"the featurize path launched another kernel: {launches}")
+    check(not any(counts.values()),
+          f"the featurize path reached a plain GroupNorm route on the "
+          f"card: {counts}")
+
+    # rows/s: fused (best of 2, warm), and stage by stage (the host
+    # ImageTransformer, then ImageFeaturizer over its output)
+    fused_s = min(_synced_ms(lambda: model.transform(table), 1)
+                  for _ in range(2)) / 1e3
+    t0 = time.perf_counter()
+    host = transformer.transform(table)
+    host_s = time.perf_counter() - t0
+    featurizer.transform(host.take(np.arange(FEAT_MINIBATCH)))  # warm
+    by_stage_s = _synced_ms(lambda: featurizer.transform(host), 1) / 1e3
+    image_gap = int(np.abs(images.astype(int)
+                           - _image_stack(host["image"]).astype(int)).max())
+
+    # correctness on the card, each over the same resized images
+    resized = DataTable({"image": list(fused["image"])})
+    alone = np.stack(featurizer.transform(resized)["features"])
+    plain_bundle = get_model(FEAT_MODEL, seed=0, gn_impl="torch",
+                             device=DEV)
+    plain_bundle.module.load_state_dict(bundle.module.state_dict())
+    launched = gn_op.launches
+    plain = np.stack(ImageFeaturizer(
+        cut_output_layers=1, minibatch_size=FEAT_MINIBATCH, device=DEV,
+        model=plain_bundle).transform(
+            DataTable({"image": list(fused["image"][:FEAT_PLAIN_ROWS])}))
+        ["features"])
+    check(gn_op.launches == launched, "the plain GroupNorm route "
+                                      "launched K5")
+    del plain_bundle
+    f32 = get_model(FEAT_MODEL, seed=0, dtype=torch.float32, device=DEV)
+    cpu_module = meta_copy(f32.module).to_empty(device="cpu")
+    cpu_module.load_state_dict({k: v.cpu() for k, v in
+                                f32.module.state_dict().items()})
+    cpu = ModelBundle(cpu_module.eval(), f32.input_spec, f32.output_names,
+                      preprocess=f32.preprocess, name=f32.name)
+    few = DataTable({"image": list(fused["image"][:FEAT_F32_ROWS])})
+    f32_card = np.stack(ImageFeaturizer(
+        cut_output_layers=1, device=DEV, model=f32).transform(few)
+        ["features"])
+    f32_cpu = np.stack(ImageFeaturizer(
+        cut_output_layers=1, device="cpu", model=cpu).transform(few)
+        ["features"])
+    del f32, cpu, cpu_module
+    torch.cuda.empty_cache()
+    gaps = {"fused_vs_featurizer_alone": _feature_gap(features, alone),
+            "kernel_vs_plain_group_norm": _feature_gap(
+                features[:FEAT_PLAIN_ROWS], plain),
+            "f32_card_vs_cpu": _feature_gap(f32_card, f32_cpu)}
+
+    # one minibatch through the fused pipeline, traced
+    one = DataTable({"image": list(table["image"][:FEAT_MINIBATCH])})
+    wall = min(_synced_ms(lambda: model.transform(one), 1)
+               for _ in range(3))
+    traced = _device_trace(lambda: model.transform(one), GN_KERNEL_NAMES)
+    traced["wall_ms"] = wall
+    traced["device_idle_share_of_wall"] = (
+        1 - traced["device_busy_ms"] / traced["wall_ms"])
+    k5_ms, k5_n = traced["kernels_by_name"]["gn_cluster"]
+    traced["group_norm_share_of_busy"] = k5_ms / traced["device_busy_ms"]
+    emit({"phase": "featurize", "part": "pipeline", "card": card,
+          "model": FEAT_MODEL, "dtype": "bfloat16", "rows": FEAT_ROWS,
+          "source": list(FEAT_SRC), "minibatch": FEAT_MINIBATCH,
+          "stages": f"resize {FEAT_RESIZE}, crop {FEAT_CROP}, flip 1; "
+          "ImageFeaturizer cut_output_layers 1", "plan": segments,
+          "minibatches": n_mb, "uploads": crossings.uploads,
+          "fetches": crossings.fetches,
+          "upload_bytes": crossings.upload_bytes,
+          "upload_shapes": sorted(crossings.upload_shapes),
+          "group_norm_sites": sites,
+          "group_norm_launches": launches["group_norm"],
+          "group_norm_launches_per_minibatch": launches["group_norm"] / n_mb,
+          "plain_group_norm_calls_on_card": counts,
+          "port_kernel_launches": launches, "setup_s": setup_s,
+          "first_call_s": main_s, "fused_s": fused_s,
+          "rows_per_s_fused": FEAT_ROWS / fused_s,
+          "stage_by_stage": {"image_transformer_host_s": host_s,
+                             "image_featurizer_s": by_stage_s,
+                             "rows_per_s": FEAT_ROWS
+                             / (host_s + by_stage_s)},
+          "peak_memory_gb": peak_gb, "one_minibatch": traced})
+    emit({"phase": "featurize", "part": "checks", "card": card,
+          "gaps": gaps, "tol": FEAT_TOL, "f32_tol": FEAT_F32_TOL,
+          "plain_rows": FEAT_PLAIN_ROWS, "f32_rows": FEAT_F32_ROWS,
+          "max_image_gap_fused_vs_host": image_gap,
+          "tolerances": "max |error| over max |reference| of the "
+          "features; images within 1 count of the host resize"})
+    check(k5_n == sites, f"{k5_n} gn_cluster kernels in one traced "
+                         f"minibatch, expected {sites}")
+    check(gaps["fused_vs_featurizer_alone"] <= FEAT_TOL
+          and gaps["kernel_vs_plain_group_norm"] <= FEAT_TOL,
+          f"bf16 features: {gaps}")
+    check(gaps["f32_card_vs_cpu"] <= FEAT_F32_TOL,
+          f"float32 features on the card vs the CPU: {gaps}")
+    check(image_gap <= 1, f"fused images vs the host route: {image_gap}")
+    del model, featurizer, bundle, fused, host
+    torch.cuda.empty_cache()
+    _example_302(card)
+    emit({"phase": "featurize", "part": "time", "card": card,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches["group_norm"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3367,6 +3724,7 @@ def main() -> int:
     dev = phase_device()
     card = dev["nvidia_smi"]
     kernels = []
+    gn_entry = None
     attn = phase_attention() if "attention" in phases else None
     if "serve" in phases:
         launches = phase_serve(card, attn["ms"] if attn else None)
@@ -3403,7 +3761,7 @@ def main() -> int:
     if "train" in phases:
         launches = phase_train(card, gn, rs)
         if gn:
-            kernels.append({
+            gn_entry = {
                 "name": "group_norm", "route": "cuda",
                 "source": "mmlspark_tpu_torch/ops/csrc/group_norm.cu",
                 "replaces": "mmlspark_tpu/ops/group_norm.py:95",
@@ -3411,7 +3769,8 @@ def main() -> int:
                 "max_abs_err": gn["max_abs_err"], "ms": gn["ms"],
                 "ms_cold_l2": gn["ms_cold_l2"],
                 "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
-                "bound_by": gn["bound_by"], "library_ms": gn["library_ms"]})
+                "bound_by": gn["bound_by"], "library_ms": gn["library_ms"]}
+            kernels.append(gn_entry)
             bwd = gn["backward"]
             kernels.append({
                 "name": "group_norm_backward", "route": "cuda",
@@ -3466,6 +3825,12 @@ def main() -> int:
     if "cifar" in phases:
         phase_cifar(card)
         torch.cuda.empty_cache()
+    if "featurize" in phases:
+        launches = phase_featurize(card)
+        torch.cuda.empty_cache()
+        if gn_entry is not None:
+            # K5 in inference mode inside the fused featurize segment
+            gn_entry["featurize_launches"] = launches
     if kernels:
         emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

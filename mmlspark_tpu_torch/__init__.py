@@ -12,7 +12,7 @@ is a CUDA C++ kernel written for Hopper (``ops/csrc``), with its plain
 PyTorch version beside it; a CPU tensor takes the plain version, a CUDA
 tensor the kernel.
 
-Four paths are ported so far:
+Six paths are ported so far:
 
 * serving ViT-B/16 through :class:`ModelServer`: ``ModelServer.add_model``
   → ``DynamicBatcher`` → ``core.plan`` → ``TorchModel`` forward, with
@@ -32,7 +32,14 @@ Four paths are ported so far:
   ``Trainer(model, TrainConfig(mesh_spec={"sp": 4})).fit_arrays`` → the
   model's ``mesh_hooks`` → ``parallel.ring_attention`` over the ``sp``
   virtual ranks of a mesh on one card, every hop of every layer one
-  ``ops.attention.attention_block_update``, a hand-written CUDA kernel.
+  ``ops.attention.attention_block_update``, a hand-written CUDA kernel;
+* the CIFAR-10 ConvNet, trained through ``Trainer.fit_arrays`` and scored
+  through ``TorchModel`` (no hand-written kernel on its path);
+* columnar pipelines: ``Pipeline``/``PipelineModel`` → ``core.plan``,
+  which runs each maximal run of device stages (``ImageTransformer``,
+  ``UnrollImage``, ``ImageFeaturizer``, ``TorchModel``) as one forward per
+  minibatch with one upload and one fetch round; ``ImageFeaturizer`` over
+  ResNet-50 runs ``ops.group_norm.group_norm`` at every norm site.
 
 ROADMAP.md lists the slices still to come.
 """

@@ -1,5 +1,5 @@
 """Typed parameter DSL for pipeline stages (own copy of the subset of
-``mmlspark_tpu.core.params`` that the model stage uses).
+``mmlspark_tpu.core.params`` that the port's stages use).
 
 Every knob on a stage is a :class:`Param` descriptor with a default, a doc
 string, an optional type and an optional validator; :class:`Params` gives
@@ -81,6 +81,13 @@ class Param:
         check._doc = f"> {lo}"  # type: ignore[attr-defined]
         return check
 
+    @staticmethod
+    def ge(lo: float) -> Callable[[Any], bool]:
+        def check(v: Any) -> bool:
+            return v >= lo
+        check._doc = f">= {lo}"  # type: ignore[attr-defined]
+        return check
+
 
 class Params:
     """Base class giving a stage its param store and introspection surface.
@@ -127,6 +134,17 @@ class Params:
                     f"available: {sorted(declared)}")
             self._values[name] = p.validate(value)
         return self
+
+    def _simple_param_values(self) -> dict[str, Any]:
+        """Explicitly-set, JSON-representable params (for persistence)."""
+        declared = type(self).params()
+        return {k: v for k, v in self._values.items()
+                if not declared[k].is_complex}
+
+    def _complex_param_values(self) -> dict[str, Any]:
+        declared = type(self).params()
+        return {k: v for k, v in self._values.items()
+                if declared[k].is_complex}
 
     def __repr__(self) -> str:
         declared = type(self).params()

@@ -9,6 +9,7 @@ preprocessing and a name.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -42,6 +43,18 @@ class ModelBundle:
             raise ValueError(
                 f"unknown output node {node!r}; available: {self.output_names}")
         return node
+
+
+def meta_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` whose parameters and buffers are empty tensors
+    on the meta device: its architecture without its weights, made
+    without copying or touching them."""
+    memo: dict = {id(t): torch.nn.Parameter(
+        torch.empty_like(t, device="meta"), requires_grad=t.requires_grad)
+        for t in module.parameters()}
+    memo.update({id(t): torch.empty_like(t, device="meta")
+                 for t in module.buffers()})
+    return copy.deepcopy(module, memo)
 
 
 # named preprocessing on float tensors, applied on the device before the

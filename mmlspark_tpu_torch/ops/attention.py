@@ -178,9 +178,12 @@ def resolve_scale(scale, d: int) -> float:
 
 def resolve_impl(impl: str, q: torch.Tensor) -> str:
     """``auto`` → the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``cuda`` on CPU tensors raises."""
+    tensors. ``cuda`` on CPU tensors raises. Meta tensors (a shape trace,
+    no data) take the plain version whatever the route asked for."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; one of {IMPLS}")
+    if q.is_meta:
+        return "torch"
     if impl == "auto":
         return "cuda" if q.is_cuda else "torch"
     if impl == "cuda" and not q.is_cuda:

@@ -261,9 +261,12 @@ def backward_error_bound(dy, x, scale, bias, num_groups: int, rel: float,
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
     """``auto`` → the kernel for CUDA tensors, the plain version for CPU
-    tensors. ``cuda`` on CPU tensors raises."""
+    tensors. ``cuda`` on CPU tensors raises. Meta tensors (a shape trace,
+    no data) take the plain version whatever the route asked for."""
     if impl not in IMPLS:
         raise ValueError(f"unknown group_norm impl {impl!r}; one of {IMPLS}")
+    if x.is_meta:
+        return "torch"
     if impl == "auto":
         return "cuda" if x.is_cuda else "torch"
     if impl == "cuda" and not x.is_cuda:

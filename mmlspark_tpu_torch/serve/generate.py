@@ -538,7 +538,7 @@ class GenerateBatcher:
                 # generation budget reached: this dispatch was the
                 # request's last; the lagged consume retires it
                 self._mask[s] = False
-        host, event = plan._issue_fetch(out)
+        (host,), event = plan._issue_fetch((out,))
         prev, self._pending = self._pending, (host, event, refs, act)
         if prev is not None:
             self._consume(prev)

@@ -302,3 +302,66 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
             server.add_model("vit", bundle)
         assert server.models() == []
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_pipeline_featurize_and_save_on_cpu_load_no_jax_module():
+    script = textwrap.dedent("""
+        import sys, tempfile
+        import numpy as np
+        from mmlspark_tpu_torch.core import plan
+        from mmlspark_tpu_torch.core.pipeline import Pipeline, PipelineModel
+        from mmlspark_tpu_torch.core.schema import make_image
+        from mmlspark_tpu_torch.data.table import DataTable
+        from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+        from mmlspark_tpu_torch.stages.image import (
+            ImageTransformer, UnrollImage)
+        images = np.zeros((3, 40, 48, 3), np.uint8)
+        table = DataTable({"image": [make_image("p", a) for a in images]})
+        f = ImageFeaturizer(device="cpu").set_model_by_name("ResNet_Small")
+        model = Pipeline([ImageTransformer(device="cpu").crop(4, 4, 32, 32),
+                          f]).fit(table)
+        assert [k for k, _ in plan.describe_plan(model.stages, table)] == [
+            "device"]
+        out = model.transform(table)
+        unrolled = PipelineModel([ImageTransformer(device="cpu").flip(1),
+                                  UnrollImage()]).transform(table)
+        with tempfile.TemporaryDirectory() as d:
+            model.save(d + "/m")
+            again = PipelineModel.load(d + "/m").transform(table)
+        assert np.array_equal(np.stack(out["features"]),
+                              np.stack(again["features"]))
+        assert len(unrolled["features"][0]) == 40 * 48 * 3
+        roots = ("jax", "jaxlib", "flax", "optax", "mmlspark_tpu")
+        print(sorted(m for m in sys.modules
+                     if any(m == r or m.startswith(r + ".") for r in roots)))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_pipeline_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from mmlspark_tpu_torch.core.pipeline import PipelineModel
+    from mmlspark_tpu_torch.core.schema import make_image
+    from mmlspark_tpu_torch.data.table import DataTable
+    from mmlspark_tpu_torch.models.image_featurizer import ImageFeaturizer
+    from mmlspark_tpu_torch.stages.image import ImageTransformer, UnrollImage
+
+    table = DataTable({"image": [make_image("p", np.zeros((8, 8, 3)))] * 2})
+    # a fused segment runs on the card unless a stage asks for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PipelineModel([ImageTransformer().flip(1),
+                       UnrollImage()]).transform(table)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ImageFeaturizer().set_model_by_name("ResNet_Small")
+    # host stages alone never touch a device
+    assert len(ImageTransformer().flip(1).transform(table)) == 2
+    out = PipelineModel([ImageTransformer().flip(1),
+                         UnrollImage(device="cpu")]).transform(table)
+    assert len(out["features"][0]) == 8 * 8 * 3
